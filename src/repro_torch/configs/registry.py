@@ -1,0 +1,44 @@
+"""Architecture registry of the port: ``--arch <id>`` -> ModelConfig.
+
+Only the dense decoder family is ported so far. ``get_config(id)``
+returns the full published config; ``reduced_config(id)`` a tiny
+same-family fp32 config for CPU tests. The values are the reference
+registry's, so configs compare field by field.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List
+
+from repro_torch.configs import olmo_1b, qwen1p5_32b, qwen3_0p6b, starcoder2_7b
+from repro_torch.models.model import ModelConfig
+
+_MODULES = [starcoder2_7b, qwen3_0p6b, qwen1p5_32b, olmo_1b]
+
+CONFIGS: Dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
+ARCH_IDS: List[str] = list(CONFIGS)
+
+#: archs of the reference registry whose families are not ported yet
+NOT_PORTED = ("zamba2-1.2b", "qwen2-moe-a2.7b", "granite-moe-3b-a800m",
+              "xlstm-350m", "whisper-tiny", "llama-3.2-vision-90b")
+
+
+def get_config(name: str, **overrides) -> ModelConfig:
+    if name in NOT_PORTED:
+        raise KeyError(f"arch {name!r} is not ported to PyTorch yet; "
+                       f"ported: {ARCH_IDS}")
+    if name not in CONFIGS:
+        raise KeyError(f"unknown arch {name!r}; choose from {ARCH_IDS}")
+    cfg = CONFIGS[name]
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+def reduced_config(name: str, **overrides) -> ModelConfig:
+    """Tiny same-family config: same block structure, laptop-sized dims,
+    fp32 so CPU numerics are tight."""
+    cfg = get_config(name)
+    r = dict(d_model=128, n_heads=4, kv_heads=min(cfg.kv_heads, 4),
+             head_dim=32, d_ff=256, vocab=512, vocab_pad=64, n_layers=4,
+             dtype="float32")
+    r.update(overrides)
+    return dataclasses.replace(cfg, **r)

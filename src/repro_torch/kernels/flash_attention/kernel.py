@@ -1,0 +1,55 @@
+"""ctypes launch of the CUDA flash-attention kernel (csrc/flash_attention.cu)."""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+
+HEAD_DIMS = (32, 64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.lru_cache(maxsize=None)
+def _fn():
+    fn = _build.load("flash_attention").flash_attention_fwd
+    fn.argtypes = [ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_int64), ctypes.c_float,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True) -> torch.Tensor:
+    """q: (b, sq, h, d); k/v: (b, skv, hkv, d), any strides with head_dim
+    contiguous. Returns a contiguous (b, sq, h, d) tensor of q's type."""
+    b, sq, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash attention takes float32 or bfloat16 q/k/v of "
+                        f"one type, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} is not one of {HEAD_DIMS}")
+    if k.shape != (b, skv, hkv, d) or v.shape != k.shape or h % hkv:
+        raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} do not form GQA attention")
+    if any(t.device != q.device or t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("q, k, v must share one CUDA device and have a "
+                         "contiguous head_dim")
+    o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_int64 * 12)(*[s for t in (q, k, v, o)
+                                      for s in t.stride()[:3]])
+    err = _fn()(_DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), o.data_ptr(), b, sq, skv, h, hkv, strides,
+                d ** -0.5, int(causal),
+                torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash attention launch failed: CUDA error {err}")
+    return o

@@ -1,0 +1,26 @@
+"""Public flash attention: (b, s, h, d) layout, kernel or plain version."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+#: launches of the CUDA kernel since the count was last set to 0
+launches = 0
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """Causal GQA flash attention.
+
+    q: (b, sq, h, d); k/v: (b, skv, hkv, d); returns (b, sq, h, d).
+    A CUDA tensor goes through the CUDA kernel (or the call raises); a
+    CPU tensor through the plain version.
+    """
+    global launches
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal)
+    out = flash_attention_cuda(q, k, v, causal=causal)
+    launches += 1
+    return out

@@ -1,0 +1,127 @@
+"""The port's dense model against the JAX model on bridged weights."""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax
+import jax.numpy as jnp
+
+from repro.configs import registry as ref_registry
+from repro.models.model import Model as RefModel
+from repro_torch import bridge
+from repro_torch.configs import ARCH_IDS, reduced_config
+from repro_torch.models.model import Model
+
+#: model forward tolerance (tests/test_kernels.py::test_model_attention_...)
+FWD_TOL = dict(atol=2e-4, rtol=2e-3)
+#: prefill/decode tolerance (tests/test_serving.py)
+DEC_TOL = dict(atol=2e-3, rtol=2e-2)
+#: reference attention impl for each of the port's
+_REF_IMPL = {"plain": "xla", "kernel": "pallas_interpret"}
+
+
+def _pair(arch, impl="plain", **overrides):
+    """(port model, reference model, port params, reference params)."""
+    ref_cfg = ref_registry.reduced_config(arch, attn_impl=_REF_IMPL[impl],
+                                          **overrides)
+    ref_model = RefModel(ref_cfg)
+    ref_params = ref_model.init(jax.random.key(0))
+    port = Model(reduced_config(arch, attn_impl=impl, **overrides),
+                 device="cpu")
+    params = bridge.from_reference(jax.tree.map(np.asarray, ref_params),
+                                   device="cpu")
+    return port, ref_model, params, ref_params
+
+
+def _tokens(cfg, b, s, seed=1):
+    return np.random.default_rng(seed).integers(0, cfg.vocab, (b, s))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bridge_round_trip(dtype):
+    port, _, params, ref_params = _pair("qwen3-0.6b", dtype=dtype)
+    want = jax.tree.map(lambda a: np.asarray(a, np.float32), ref_params)
+    got = bridge.to_numpy(params)
+    assert jax.tree.structure(got) == jax.tree.structure(want)
+    for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+        np.testing.assert_array_equal(g, w)       # bf16 -> fp32 is exact
+    assert params["layers"]["attn"]["wq"].dtype == getattr(torch, dtype)
+    assert params["layers"]["attn"]["wq"].shape[0] == port.cfg.n_layers
+
+
+@pytest.mark.parametrize("arch", sorted(ARCH_IDS))
+@pytest.mark.parametrize("impl", ["plain", "kernel"])
+def test_forward_matches_reference(arch, impl):
+    port, ref_model, params, ref_params = _pair(arch, impl)
+    tokens = _tokens(port.cfg, 2, 64)
+    want, _ = ref_model.forward(ref_params, {"tokens": jnp.asarray(tokens)})
+    got, aux = port.forward(params, {"tokens": torch.from_numpy(tokens)})
+    assert got.dtype == torch.float32 and float(aux) == 0.0
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD_TOL)
+
+
+def test_loss_matches_reference():
+    port, ref_model, params, ref_params = _pair("olmo-1b")
+    tokens = _tokens(port.cfg, 2, 16)
+    labels = np.where(np.arange(16) % 5 == 0, -1, tokens)
+    want, _ = ref_model.loss(ref_params, {"tokens": jnp.asarray(tokens),
+                                          "labels": jnp.asarray(labels)})
+    got, _ = port.loss(params, {"tokens": torch.from_numpy(tokens),
+                                "labels": torch.from_numpy(labels)})
+    np.testing.assert_allclose(float(got), float(want), **FWD_TOL)
+
+
+@pytest.mark.parametrize("arch", sorted(ARCH_IDS))
+def test_prefill_decode_matches_reference_and_forward(arch):
+    """logits(prefill k) + logits(decode k+1..n) == the reference's, and
+    == the port's own forward(n): the cache path is the forward path."""
+    port, ref_model, params, ref_params = _pair(arch)
+    b, k, n = 2, 12, 16
+    tokens = _tokens(port.cfg, b, n)
+    tt, jt = torch.from_numpy(tokens), jnp.asarray(tokens)
+    full, _ = port.forward(params, {"tokens": tt})
+
+    got, cache = port.prefill(params, {"tokens": tt[:, :k]}, max_len=n + 4)
+    want, ref_cache = ref_model.prefill(ref_params, {"tokens": jt[:, :k]},
+                                        max_len=n + 4)
+    np.testing.assert_allclose(got[:, 0].numpy(), np.asarray(want[:, 0]),
+                               **DEC_TOL)
+    np.testing.assert_allclose(got[:, 0].numpy(), full[:, k - 1].numpy(),
+                               **DEC_TOL)
+    for name, c in bridge.to_numpy(cache["layers"]).items():
+        np.testing.assert_allclose(c, np.asarray(ref_cache["layers"][name]),
+                                   **DEC_TOL)
+    for i in range(k, n):
+        got, cache = port.decode_step(params, cache, tt[:, i:i + 1])
+        want, ref_cache = ref_model.decode_step(ref_params, ref_cache,
+                                                jt[:, i:i + 1])
+        np.testing.assert_allclose(got[:, 0].numpy(), np.asarray(want[:, 0]),
+                                   **DEC_TOL, err_msg=f"{arch} step {i}")
+        np.testing.assert_allclose(got[:, 0].numpy(), full[:, i].numpy(),
+                                   **DEC_TOL, err_msg=f"{arch} step {i}")
+    assert cache["length"].tolist() == [n] * b
+
+
+def test_decode_on_a_bridged_reference_cache():
+    """The port continues decoding from the reference's own cache."""
+    port, ref_model, params, ref_params = _pair("qwen3-0.6b")
+    tokens = jnp.asarray(_tokens(port.cfg, 2, 9))
+    _, ref_cache = ref_model.prefill(ref_params, {"tokens": tokens[:, :8]},
+                                     max_len=12)
+    cache = bridge.cache_from_reference(jax.tree.map(np.asarray, ref_cache),
+                                        device="cpu")
+    want, _ = ref_model.decode_step(ref_params, ref_cache, tokens[:, 8:])
+    got, _ = port.decode_step(params, cache,
+                              torch.from_numpy(np.array(tokens[:, 8:])))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **DEC_TOL)
+
+
+def test_unported_family_and_int8_cache_raise():
+    cfg = reduced_config("qwen3-0.6b")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        Model(dataclasses.replace(cfg, family="moe"), device="cpu")
+    model = Model(dataclasses.replace(cfg, kv_cache_quant=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="int8"):
+        model.make_cache(1, 8)
