@@ -7,16 +7,21 @@ Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi);
   2. every CUDA source of the port built with nvcc (all at once), then
      each kernel held against its plain version on the card at the main
-     path's shapes and timed beside its plain version, one PyTorch
-     library call and its bound;
-  3. a reduced qwen3-0.6b in fp32, attention through the kernel against
-     the plain path;
-  4. the main path: full-width, full-depth qwen3-0.6b in bf16 on random
-     weights serving 8 requests through ServeEngine, with the launch
-     counts set to 0 just before and read just after; then the fused
-     RMSNorm's own entry point, counted the same way;
+     paths' shapes and timed beside its plain version, one PyTorch
+     library call (where one computes the same function) and its bound:
+     flash attention, the fused RMSNorm, the two SSD-scan passes and the
+     composed SSD scan;
+  3. reduced qwen3-0.6b and reduced zamba2-1.2b in fp32, the kernel
+     paths against the plain ones;
+  4. the main paths, each with the launch counts set to 0 just before
+     and read just after: full-width, full-depth qwen3-0.6b in bf16 on
+     random weights serving 8 requests through ServeEngine; the fused
+     RMSNorm's own entry point; full-width, full-depth zamba2-1.2b in
+     bf16 serving 8 requests (every Mamba2 prefill through the two SSD
+     kernels, the shared attention block through flash attention), then
+     one full-width zamba2 forward, the reference's own kernel route;
   5. host wall time against device-busy time (torch.profiler) for one
-     decode step and one prefill of the main path;
+     decode step and one prefill of each served model;
   6. one JSON line of per-kernel numbers and, last, the device line.
 """
 from __future__ import annotations
@@ -41,6 +46,10 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm.kernel import fused_rmsnorm_cuda
 from repro_torch.kernels.rmsnorm.ref import fused_rmsnorm_ref
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan.kernel import ssd_inter_cuda, ssd_intra_cuda
+from repro_torch.kernels.ssd_scan.ref import (ssd_inter_ref, ssd_intra_ref,
+                                              ssd_scan_ref)
 from repro_torch.models.model import Model
 from repro_torch.serving import RequestQueue, ServeEngine
 
@@ -48,9 +57,14 @@ from repro_torch.serving import RequestQueue, ServeEngine
 #: and HBM3 bandwidth
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
+#: tolerances of the reference's own tests: kernel outputs per type and SSM
+#: states (tests/test_kernels.py), model forward (test_kernels.py) and
+#: prefill / decode (tests/test_serving.py)
 TOL = {torch.float32: dict(atol=2e-5, rtol=2e-4),
        torch.bfloat16: dict(atol=6e-2, rtol=6e-2)}
+STATE_TOL = dict(atol=1e-3, rtol=1e-2)
 MODEL_TOL = dict(atol=2e-4, rtol=2e-3)
+SERVE_TOL = dict(atol=2e-3, rtol=2e-2)
 
 
 def check(ok: bool, what: str) -> None:
@@ -147,12 +161,79 @@ def check_rmsnorm(gen, shape, dtype):
         bound_ms=ms_bound, bound_by=bound_by)
 
 
+def check_ssd(gen, b, s, h, p, n, chunk, dtype):
+    """Both SSD passes against their plain versions, and the composed scan
+    against the chunked model path, on test_ssd_scan_sweep's input
+    distributions. Returns one timed row per pass."""
+    xh = randn(gen, (b, s, h, p), dtype)
+    bm, cm = (randn(gen, (b, s, n), dtype) for _ in range(2))
+    dt = F.softplus(randn(gen, (b, s, h), torch.float32))
+    log_a = -dt * torch.exp(randn(gen, (b, s, h), torch.float32) * 0.3)
+    shape = f"b={b} s={s} h={h} p={p} n={n} chunk={chunk} {str(dtype)[6:]}"
+    q = min(chunk, s)
+    c = s // q
+    xc = xh.reshape(b, c, q, h, p)
+    bc, cc = (t.reshape(b, c, q, n) for t in (bm, cm))
+    dc = dt.reshape(b, c, q, h)
+    cum = torch.cumsum(log_a.reshape(b, c, q, h), dim=2)
+
+    got = ssd_intra_cuda(xc, bc, cc, cum, dc)
+    torch.cuda.synchronize()
+    want = ssd_intra_ref(xc, bc, cc, cum, dc)
+    err_intra = max(max_err(g, w, **tol, what=f"ssd_intra {name} {shape}")
+                    for g, w, tol, name in zip(
+                        got, want, (TOL[torch.float32], STATE_TOL,
+                                    TOL[torch.float32]),
+                        ("y_intra", "S", "decay")))
+    hprev = randn(gen, (b, c, h, n, p), torch.float32)
+    y_intra = got[0]
+    y = ssd_inter_cuda(cc, cum, hprev, y_intra, dtype)
+    torch.cuda.synchronize()
+    err_inter = max_err(y, ssd_inter_ref(cc, cum, hprev, y_intra, dtype),
+                        **TOL[dtype], what=f"ssd_inter {shape}")
+    ys, hs = ssd_ops.ssd_scan(xh, bm, cm, log_a, dt, chunk=chunk)
+    torch.cuda.synchronize()
+    # the chunked path on the inputs cast to fp32, the arithmetic of the
+    # Pallas bodies: at bf16 the chunked path itself rounds C B^T to bf16
+    yr, hr = ssd_scan_ref(xh.float(), bm.float(), cm.float(), log_a, dt,
+                          chunk=chunk)
+    max_err(ys, yr, **TOL[dtype], what=f"ssd_scan y {shape}")
+    max_err(hs, hr, **STATE_TOL, what=f"ssd_scan final state {shape}")
+
+    # bounds: the work these inputs need (the lower triangle of M, once
+    # per head; C B^T once per chunk) and each input read, output written
+    # once; fp32 arithmetic, so the fp32 peak outside the tensor cores
+    tri = q * (q + 1) / 2
+    nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
+    intra_flops = b * c * (2 * n * tri + h * (3 * tri + 2 * p * tri
+                                              + 2 * q * n * p + q * p))
+    inter_flops = b * c * h * (2 * q * n * p + 2 * q * p)
+    intra_bound = bound(intra_flops, nbytes(xc, bc, cc, cum, dc, *got),
+                        torch.float32)
+    inter_bound = bound(inter_flops, nbytes(cc, cum, hprev, y_intra, y),
+                        torch.float32)
+    rows = []
+    for err, (ms_bound, bound_by), kernel, plain in (
+            (err_intra, intra_bound,
+             lambda: ssd_intra_cuda(xc, bc, cc, cum, dc),
+             lambda: ssd_intra_ref(xc, bc, cc, cum, dc)),
+            (err_inter, inter_bound,
+             lambda: ssd_inter_cuda(cc, cum, hprev, y_intra, dtype),
+             lambda: ssd_inter_ref(cc, cum, hprev, y_intra, dtype))):
+        rows.append(dict(shape=shape, max_abs_err=err, ms=time_ms(kernel),
+                         plain_ms=time_ms(plain), library_ms=None,
+                         bound_ms=ms_bound, bound_by=bound_by))
+    return rows
+
+
 def print_rows(name, rows):
     for row in rows:
+        lib = row["library_ms"]
+        lib = "none" if lib is None else f"{lib:.4f} ms"
         print(f"  {name} {row['shape']}: kernel {row['ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} "
-              f"ms, bound {row['bound_ms']:.5f} ms ({row['bound_by']}), max "
-              f"abs err {row['max_abs_err']:.3g}")
+              f"{row['plain_ms']:.4f} ms, library {lib}, bound "
+              f"{row['bound_ms']:.5f} ms ({row['bound_by']}), max abs err "
+              f"{row['max_abs_err']:.3g}")
 
 
 # --------------------------------------------------------------------------
@@ -170,6 +251,38 @@ def model_parity():
     want, _ = plain.forward(params, {"tokens": tokens})
     got, _ = kernel.forward(params, {"tokens": tokens})
     return max_err(got, want, **MODEL_TOL, what="reduced qwen3 logits")
+
+
+def hybrid_parity():
+    """Reduced zamba2-1.2b in fp32: the SSD kernels and flash attention
+    against the plain path; forward over 8 chunks of 32, and prefill
+    logits and decode caches. Returns the largest error of each."""
+    plain = Model(reduced_config("zamba2-1.2b"))
+    kernel = Model(reduced_config("zamba2-1.2b", use_ssm_kernel=True,
+                                  attn_impl="kernel"))
+    params = plain.init(seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    tokens = torch.randint(0, plain.cfg.vocab, (2, 256), generator=gen,
+                           device="cuda")
+    ssd_ops.intra_launches = ssd_ops.inter_launches = 0
+    want, _ = plain.forward(params, {"tokens": tokens})
+    check(ssd_ops.intra_launches == ssd_ops.inter_launches == 0,
+          "the plain path launches no kernel")
+    got, _ = kernel.forward(params, {"tokens": tokens})
+    n = kernel.cfg.n_layers
+    check(ssd_ops.intra_launches == ssd_ops.inter_launches == n,
+          f"{n} launches of each SSD pass in the reduced forward")
+    err_fwd = max_err(got, want, **MODEL_TOL, what="reduced zamba2 logits")
+    want, want_c = plain.prefill(params, {"tokens": tokens}, max_len=300)
+    got, got_c = kernel.prefill(params, {"tokens": tokens}, max_len=300)
+    err_pre = max_err(got, want, **SERVE_TOL,
+                      what="reduced zamba2 prefill logits")
+    for part in ("mamba", "attn"):
+        for name in got_c[part]:
+            err_pre = max(err_pre, max_err(
+                got_c[part][name], want_c[part][name], **SERVE_TOL,
+                what=f"reduced zamba2 prefill cache {part}/{name}"))
+    return err_fwd, err_pre
 
 
 def serve_main_path():
@@ -210,10 +323,78 @@ def serve_main_path():
     return model, params, engine, results, launches, lengths, wall
 
 
-def where_time_goes(model, params, engine, n: int = 5):
+def serve_hybrid():
+    """Full zamba2-1.2b serving 8 requests through the SSD kernels and
+    flash attention, then one full-width forward; returns (model, params,
+    engine, results, {kernel: launches while serving}, prompt lengths,
+    wall seconds)."""
+    cfg = get_config("zamba2-1.2b", attn_impl="kernel", use_ssm_kernel=True)
+    model = Model(cfg)
+    params = model.init(seed=0)
+    engine = ServeEngine(model, params, n_slots=4, max_len=1024)
+    rng = np.random.default_rng(0)
+    # the chunked scan takes a prompt of at most one chunk or of whole
+    # chunks (the reference's rule), so: 4 short prompts and 4 long ones
+    lengths = [int(n) for n in rng.integers(16, 129, size=4)]
+    lengths += [int(n) for n in rng.choice([256, 384, 512, 640], size=4)]
+    queue = RequestQueue()
+    for n in lengths:
+        queue.submit(rng.integers(0, cfg.vocab, size=n), max_new_tokens=32)
+    torch.cuda.synchronize()
+    ssd_ops.intra_launches = ssd_ops.inter_launches = flash_ops.launches = 0
+    t0 = time.perf_counter()
+    results = engine.run(queue)
+    wall = time.perf_counter() - t0
+    launches = {"ssd_intra": ssd_ops.intra_launches,
+                "ssd_inter": ssd_ops.inter_launches,
+                "flash_attention": flash_ops.launches}
+    check(len(results) == 8, f"8 requests finish, got {len(results)}")
+    for r in results:
+        check(len(r.tokens) == 32, f"request {r.uid}: 32 tokens")
+        check(all(0 <= t < cfg.vocab for t in r.tokens),
+              f"request {r.uid}: tokens in [0, vocab)")
+    for part in ("mamba", "attn"):
+        for name, t in engine.cache[part].items():
+            check(bool(torch.isfinite(t).all()),
+                  f"finite cache {part}/{name}")
+    n_apps = int(model._shared_flags().sum())
+    for name, per in (("ssd_intra", cfg.n_layers), ("ssd_inter", cfg.n_layers),
+                      ("flash_attention", n_apps)):
+        check(launches[name] == per * engine.n_prefills,
+              f"{name} launches {launches[name]} == {per} x "
+              f"{engine.n_prefills} prefills")
+
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, size=512),
+                             device="cuda")[None]
+    ssd_ops.intra_launches = ssd_ops.inter_launches = flash_ops.launches = 0
+    logits, _ = model.forward(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    check(logits.shape == (1, 512, cfg.padded_vocab), "forward logits shape")
+    check(bool(torch.isfinite(logits[..., :cfg.vocab]).all()),
+          "finite forward logits")
+    got = (ssd_ops.intra_launches, ssd_ops.inter_launches, flash_ops.launches)
+    check(got == (cfg.n_layers, cfg.n_layers, n_apps),
+          f"forward launches {got} == ({cfg.n_layers}, {cfg.n_layers}, "
+          f"{n_apps})")
+    return model, params, engine, results, launches, lengths, wall
+
+
+def print_serving(name, engine, results, lengths, wall, launches):
+    n_tokens = sum(len(r.tokens) for r in results)
+    busy = engine.prefill_s + engine.decode_s
+    print(f"{name}: served {len(results)} requests, prompts "
+          f"{sorted(lengths)}, {n_tokens} tokens in {wall:.3f} s: prefill "
+          f"{engine.prefill_s / engine.n_prefills * 1e3:.3f} ms per request, "
+          f"decode {engine.decode_s / engine.decode_steps * 1e3:.3f} ms per "
+          f"step ({engine.decode_steps} steps, {engine.n_slots} slots), "
+          f"{n_tokens / busy:.1f} tokens/s; launches {launches}")
+
+
+def where_time_goes(model, params, engine, kernels, n: int = 5):
     """Host wall time against device-busy time (the sum of the kernels'
     times in a torch.profiler trace) for one decode step of the 4-slot
-    batch and one 512-token prefill, warm, as the main path runs them."""
+    batch and one 512-token prefill, warm, as the main path runs them;
+    ``kernels`` names the port's kernels by a substring of their names."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     prompt = torch.randint(0, model.cfg.vocab, (1, 512), device="cuda")
@@ -240,16 +421,17 @@ def where_time_goes(model, params, engine, n: int = 5):
                        if r.device_type == DeviceType.CUDA),
                       key=lambda r: -r.self_device_time_total)
         device_ms = sum(r.self_device_time_total for r in rows) / n / 1e3
-        flash_ms = sum(r.self_device_time_total for r in rows
-                       if "flash_fwd" in r.key) / n / 1e3
         if device_ms == 0.0:
             print(f"  {name}: wall {wall_ms:.3f} ms; device time not "
                   f"measured (the profiler saw no kernel)")
             continue
+        share = lambda key: sum(r.self_device_time_total for r in rows
+                                if key in r.key) / n / 1e3
+        shares = ", ".join(f"{kname} {share(key):.3f} ms"
+                           for kname, key in kernels.items())
         print(f"  {name}: wall {wall_ms:.3f} ms, device busy "
               f"{device_ms:.3f} ms (idle share "
-              f"{1 - device_ms / wall_ms:.3f}), flash attention "
-              f"{flash_ms:.3f} ms; top kernels:")
+              f"{1 - device_ms / wall_ms:.3f}), {shares}; top kernels:")
         for r in rows[:6]:
             print(f"    {r.self_device_time_total / n / 1e3:.3f} ms "
                   f"x{r.count // n} {r.key[:90]}")
@@ -295,46 +477,78 @@ def main() -> int:
     flash_rows = [check_flash(gen, b, s, 16, 8, 128, torch.bfloat16)
                   for b in (1, 4) for s in (37, 128, 512, 1000)]
     flash_rows += [check_flash(gen, 1, 512, 16, 1, 64, torch.bfloat16),
-                   check_flash(gen, 1, 512, 16, 8, 128, torch.float32)]
+                   check_flash(gen, 1, 512, 16, 8, 128, torch.float32),
+                   check_flash(gen, 1, 512, 32, 32, 64, torch.bfloat16)]
     print_rows("flash_attention", flash_rows)
     rms_rows = [check_rmsnorm(gen, shape, dtype)
                 for shape in ((2048, 1024), (2, 64, 128), (4, 100, 256),
                               (512, 384), (1, 7, 64))
                 for dtype in (torch.bfloat16, torch.float32)]
     print_rows("fused_rmsnorm", rms_rows)
+    # zamba2-1.2b's prefill shape first (4 chunks of 128), then the
+    # reference's sweep (tests/test_kernels.py) in both types
+    ssd_rows = [check_ssd(gen, 1, 512, 64, 64, 64, 128, torch.bfloat16)]
+    ssd_rows += [check_ssd(gen, *shape, dtype)
+                 for shape in ((2, 128, 4, 32, 16, 32),
+                               (1, 256, 8, 64, 64, 128),
+                               (2, 64, 2, 16, 8, 16))
+                 for dtype in (torch.float32, torch.bfloat16)]
+    print_rows("ssd_intra", [rows[0] for rows in ssd_rows])
+    print_rows("ssd_inter", [rows[1] for rows in ssd_rows])
 
     err = model_parity()
     print(f"reduced qwen3-0.6b fp32, kernel vs plain logits: max abs err "
           f"{err:.3g}")
+    err_fwd, err_pre = hybrid_parity()
+    print(f"reduced zamba2-1.2b fp32, kernels vs plain: forward logits max "
+          f"abs err {err_fwd:.3g}, prefill logits and caches {err_pre:.3g}")
 
     model, params, engine, results, flash_launches, lengths, wall = \
         serve_main_path()
-    n_tokens = sum(len(r.tokens) for r in results)
-    busy = engine.prefill_s + engine.decode_s
-    print(f"served {len(results)} requests, prompts {sorted(lengths)}, "
-          f"{n_tokens} tokens in {wall:.3f} s: prefill "
-          f"{engine.prefill_s / engine.n_prefills * 1e3:.3f} ms per request, "
-          f"decode {engine.decode_s / engine.decode_steps * 1e3:.3f} ms per "
-          f"step ({engine.decode_steps} steps, 4 slots), "
-          f"{n_tokens / busy:.1f} tokens/s; flash launches {flash_launches}")
+    print_serving("qwen3-0.6b", engine, results, lengths, wall,
+                  {"flash_attention": flash_launches})
     rms_launches = rmsnorm_entry_point()
     print("where the time goes (qwen3-0.6b bf16, warm):")
-    where_time_goes(model, params, engine)
+    where_time_goes(model, params, engine, {"flash attention": "flash_fwd"})
+    del model, params, engine
+    torch.cuda.empty_cache()
 
-    main_flash = flash_rows[2]             # b=1 s=512: a full-length prompt
-    main_rms = rms_rows[0]                 # 4 x 512 tokens x d=1024, bf16
+    model, params, engine, results, hybrid_launches, lengths, wall = \
+        serve_hybrid()
+    print_serving("zamba2-1.2b", engine, results, lengths, wall,
+                  hybrid_launches)
+    print("where the time goes (zamba2-1.2b bf16, warm):")
+    where_time_goes(model, params, engine,
+                    {"ssd_intra": "ssd_intra", "ssd_inter": "ssd_inter",
+                     "flash attention": "flash_fwd"})
+
     kernels = [
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/flash_attention/csrc/"
                     "flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:101",
-             launches=flash_launches),
+             launches=flash_launches + hybrid_launches["flash_attention"],
+             launches_by_path={
+                 "qwen3-0.6b serving": flash_launches,
+                 "zamba2-1.2b serving": hybrid_launches["flash_attention"]}),
         dict(name="fused_rmsnorm", route="triton",
              source="src/repro_torch/kernels/rmsnorm/kernel.py",
              replaces="src/repro/kernels/rmsnorm/kernel.py:40",
              launches=rms_launches),
+        dict(name="ssd_intra", route="cuda",
+             source="src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+             replaces="src/repro/kernels/ssd_scan/kernel.py:91",
+             launches=hybrid_launches["ssd_intra"]),
+        dict(name="ssd_inter", route="cuda",
+             source="src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+             replaces="src/repro/kernels/ssd_scan/kernel.py:117",
+             launches=hybrid_launches["ssd_inter"]),
     ]
-    for entry, row in zip(kernels, (main_flash, main_rms)):
+    # the rows at each kernel's main-path shape: flash at a full-length
+    # qwen3 prompt (b=1 s=512), RMSNorm on 4 x 512 tokens of d=1024 bf16,
+    # the SSD passes at a 512-token zamba2 prefill
+    main_rows = (flash_rows[2], rms_rows[0], ssd_rows[0][0], ssd_rows[0][1])
+    for entry, row in zip(kernels, main_rows):
         entry.update({k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                           "bound_ms", "bound_by",
                                           "library_ms")}, shape=row["shape"])

@@ -1,4 +1,4 @@
-"""Architecture configs of the dense decoder family (see ``registry``)."""
+"""Architecture configs of the ported families (see ``registry``)."""
 from repro_torch.configs.registry import ARCH_IDS, get_config, reduced_config
 
 __all__ = ["ARCH_IDS", "get_config", "reduced_config"]

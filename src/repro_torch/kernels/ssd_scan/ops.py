@@ -1,0 +1,67 @@
+"""Public SSD scan: intra-chunk pass -> chunk recurrence -> inter-chunk
+pass (counterpart of ``repro.kernels.ssd_scan.ops``)."""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels.ssd_scan.kernel import ssd_inter_cuda, ssd_intra_cuda
+from repro_torch.kernels.ssd_scan.ref import ssd_inter_ref, ssd_intra_ref
+from repro_torch.models.mamba2 import chunk_len, chunk_recurrence
+
+#: launches of each CUDA pass since the counts were last set to 0
+intra_launches = 0
+inter_launches = 0
+
+
+def ssd_intra(xh, bm, cm, cum, dt):
+    """The intra-chunk pass: the CUDA kernel for a CUDA tensor (or the
+    call raises), the plain version for a CPU tensor."""
+    global intra_launches
+    if xh.device.type == "cpu":
+        return ssd_intra_ref(xh, bm, cm, cum, dt)
+    out = ssd_intra_cuda(xh, bm, cm, cum, dt)
+    intra_launches += 1
+    return out
+
+
+def ssd_inter(cm, cum, h_prevs, y_intra, out_dtype):
+    """The inter-chunk pass, dispatched as :func:`ssd_intra`."""
+    global inter_launches
+    if cm.device.type == "cpu":
+        return ssd_inter_ref(cm, cum, h_prevs, y_intra, out_dtype)
+    out = ssd_inter_cuda(cm, cum, h_prevs, y_intra, out_dtype)
+    inter_launches += 1
+    return out
+
+
+def ssd_scan(xh: torch.Tensor, b_mat: torch.Tensor, c_mat: torch.Tensor,
+             log_a: torch.Tensor, dt: torch.Tensor, *, chunk: int = 128,
+             h0: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan (Mamba2).
+
+    xh: (b, s, h, p); b_mat/c_mat: (b, s, n); log_a/dt: (b, s, h).
+    Returns (y (b, s, h, p) in xh's type, final state (b, h, n, p) fp32).
+    The chunk recurrence between the passes is a short torch loop over
+    s / chunk steps, as the reference runs it in a ``lax.scan`` outside
+    its kernels.
+    """
+    bsz, s, h, p = xh.shape
+    n = b_mat.shape[-1]
+    q = chunk_len(s, chunk)
+    c = s // q
+
+    xc = xh.reshape(bsz, c, q, h, p)
+    bc = b_mat.reshape(bsz, c, q, n)
+    cc = c_mat.reshape(bsz, c, q, n)
+    la = log_a.reshape(bsz, c, q, h).float()
+    dc = dt.reshape(bsz, c, q, h).float()
+    cum = torch.cumsum(la, dim=2)                               # (b,c,q,h)
+
+    y_intra, s_chunk, chunk_decay = ssd_intra(xc, bc, cc, cum, dc)
+
+    h_prevs, h_last = chunk_recurrence(s_chunk, chunk_decay, h0)
+    y = ssd_inter(cc, cum, h_prevs, y_intra, xh.dtype)
+    return y.reshape(bsz, s, h, p), h_last

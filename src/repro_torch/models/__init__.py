@@ -1,4 +1,5 @@
-"""LM substrate of the port: the dense decoder family in plain torch.
+"""LM substrate of the port: the dense decoder and hybrid (Mamba2 +
+shared attention) families in plain torch around the kernels.
 
 Params are nested dicts of tensors in the reference layout; the layer
 stack carries a leading ``layers`` axis that the model loops over.

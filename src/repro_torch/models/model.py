@@ -1,7 +1,12 @@
 """Model factory of the port (counterpart of ``repro.models.model``).
 
-One config schema; the dense decoder family is ported so far. Entry
-points, as in the reference:
+One config schema; two families are ported so far:
+
+  dense   decoder-only transformer (starcoder2, qwen3, qwen1.5, olmo)
+  hybrid  Mamba2 backbone + one *shared* attention block applied every
+          k layers (zamba2)
+
+Entry points, as in the reference:
 
   ``forward``      full-sequence logits
   ``loss``         next-token CE with fp32 softmax
@@ -18,9 +23,11 @@ import dataclasses
 import math
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import mamba2 as m2
 from repro_torch.models.layers import (apply_norm, embed_tokens,
                                        make_embed_params, make_norm_params,
                                        unembed)
@@ -39,7 +46,7 @@ Tree = Dict[str, object]
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense (the only family ported)
+    family: str                      # dense | hybrid (the ported ones)
     n_layers: int
     d_model: int
     n_heads: int
@@ -53,9 +60,14 @@ class ModelConfig:
     qk_norm: bool = False
     rope_theta: Optional[float] = 10000.0
     tie_embeddings: bool = False
+    ssm: Optional[m2.SSMConfig] = None
+    shared_attn_every: int = 0       # hybrid: shared block cadence
+    shared_attn_d_ff: int = 0        # hybrid: shared block MLP width
     dtype: str = "bfloat16"
     attn_impl: str = "plain"         # plain | kernel
+    use_ssm_kernel: bool = False     # hybrid: SSD scan through its kernels
     vocab_pad: int = 256
+    sub_quadratic: bool = False      # can serve long_500k
     kv_cache_quant: bool = False     # int8 KV cache: not ported yet
 
     @property
@@ -71,10 +83,10 @@ class ModelConfig:
     def tdtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
-    def block_cfg(self) -> BlockConfig:
+    def block_cfg(self, *, d_ff: Optional[int] = None) -> BlockConfig:
         return BlockConfig(
             d_model=self.d_model, n_heads=self.n_heads, kv_heads=self.kv_heads,
-            head_dim=self.hd, d_ff=self.d_ff,
+            head_dim=self.hd, d_ff=d_ff if d_ff is not None else self.d_ff,
             norm=self.norm, mlp=self.mlp, qkv_bias=self.qkv_bias,
             qk_norm=self.qk_norm, rope_theta=self.rope_theta,
             attn_impl=self.attn_impl)
@@ -88,11 +100,13 @@ class ModelConfig:
 class Model:
     """Functional model wrapper: holds the config and the device."""
 
+    FAMILIES = ("dense", "hybrid")
+
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
-        if cfg.family != "dense":
+        if cfg.family not in self.FAMILIES:
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported to PyTorch yet; only "
-                "'dense' is")
+                f"family {cfg.family!r} is not ported to PyTorch yet; "
+                f"ported: {self.FAMILIES}")
         self.cfg = cfg
         self.device = resolve_device(device)
 
@@ -105,6 +119,8 @@ class Model:
         if self.device.type != "meta":
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
+        if self.cfg.family == "hybrid":
+            return self._build_hybrid(gen)
         return self._build_decoder(gen)
 
     def _build_decoder(self, gen) -> Tree:
@@ -115,6 +131,22 @@ class Model:
                 "layers": stack_params(
                     cfg.n_layers,
                     lambda: make_decoder_block(gen, bcfg, dt, dev)),
+                "final_norm": make_norm_params(cfg.d_model, cfg.norm, dt,
+                                               dev)}
+
+    def _build_hybrid(self, gen) -> Tree:
+        cfg, dev, dt = self.cfg, self.device, self.cfg.tdtype
+
+        def mamba_layer():
+            return {"mamba": m2.make_mamba2_params(gen, cfg.d_model, cfg.ssm,
+                                                   dt, dev),
+                    "norm": make_norm_params(cfg.d_model, cfg.norm, dt, dev)}
+
+        return {"embed": make_embed_params(gen, cfg.padded_vocab, cfg.d_model,
+                                           dt, cfg.tie_embeddings, dev),
+                "layers": stack_params(cfg.n_layers, mamba_layer),
+                "shared": make_decoder_block(gen, self._shared_cfg(), dt,
+                                             dev),
                 "final_norm": make_norm_params(cfg.d_model, cfg.norm, dt,
                                                dev)}
 
@@ -138,13 +170,40 @@ class Model:
             aux = aux + a
         return apply_norm(params["final_norm"], x, cfg.norm), aux
 
+    # -- hybrid (zamba2) ---------------------------------------------------------
+
+    def _shared_cfg(self) -> BlockConfig:
+        return self.cfg.block_cfg(d_ff=self.cfg.shared_attn_d_ff)
+
+    def _shared_flags(self) -> np.ndarray:
+        """Static per-layer flags: apply the shared block after layer i."""
+        cfg = self.cfg
+        k = cfg.shared_attn_every
+        return (np.arange(cfg.n_layers) % k) == (k - 1)
+
+    def _hybrid_forward(self, params: Tree, x: torch.Tensor):
+        cfg = self.cfg
+        sb_cfg = self._shared_cfg()
+        for i, flag in enumerate(self._shared_flags()):
+            lp = layer_slice(params["layers"], i)
+            hn = apply_norm(lp["norm"], x, cfg.norm)
+            x = x + m2.apply_mamba2(lp["mamba"], hn, cfg.ssm,
+                                    use_kernel=cfg.use_ssm_kernel)
+            if flag:
+                x, _ = apply_decoder_block(params["shared"], x, sb_cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return apply_norm(params["final_norm"], x, cfg.norm), aux
+
     # -- forward / loss ----------------------------------------------------------
 
     def forward(self, params: Tree, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full-sequence forward. Returns (logits fp32, aux loss)."""
         x = embed_tokens(params["embed"], batch["tokens"])
-        x, aux = self._decoder_forward(params, x)
+        if self.cfg.family == "hybrid":
+            x, aux = self._hybrid_forward(params, x)
+        else:
+            x, aux = self._decoder_forward(params, x)
         return self._logits(params, x), aux
 
     def loss(self, params: Tree, batch: Dict[str, torch.Tensor]):
@@ -166,15 +225,23 @@ class Model:
     def make_cache(self, batch: int, max_len: int) -> Tuple[Tree, Tree]:
         """Zero-initialised decode cache + its logical axes."""
         cfg = self.cfg
+        length = torch.zeros(batch, dtype=torch.int32, device=self.device)
+        kv_axes = {k: ("layers", *a) for k, a in BLOCK_CACHE_AXES.items()}
+        if cfg.family == "hybrid":
+            n_apps = int(self._shared_flags().sum())
+            one = init_block_cache(batch, max_len, self._shared_cfg(),
+                                   cfg.tdtype, self.device)
+            mamba = m2.init_mamba2_cache(batch, cfg.d_model, cfg.ssm,
+                                         cfg.tdtype, self.device)
+            axes = {"mamba": {"h": ("layers", "batch", "inner", None, None),
+                              "conv": ("layers", "batch", None, "inner")},
+                    "attn": kv_axes, "length": ("batch",)}
+            return {"mamba": _stacked(mamba, cfg.n_layers),
+                    "attn": _stacked(one, n_apps), "length": length}, axes
         one = init_block_cache(batch, max_len, cfg.block_cfg(), cfg.tdtype,
                                self.device, quantized=cfg.kv_cache_quant)
-        layers = {k: torch.zeros((cfg.n_layers, *t.shape), dtype=t.dtype,
-                                 device=t.device) for k, t in one.items()}
-        axes = {"layers": {k: ("layers", *a)
-                           for k, a in BLOCK_CACHE_AXES.items()},
-                "length": ("batch",)}
-        length = torch.zeros(batch, dtype=torch.int32, device=self.device)
-        return {"layers": layers, "length": length}, axes
+        axes = {"layers": kv_axes, "length": ("batch",)}
+        return {"layers": _stacked(one, cfg.n_layers), "length": length}, axes
 
     def prefill(self, params: Tree, batch: Dict[str, torch.Tensor],
                 max_len: int) -> Tuple[torch.Tensor, Tree]:
@@ -182,8 +249,29 @@ class Model:
         cfg = self.cfg
         tokens = batch["tokens"]
         b, s = tokens.shape
-        bcfg = cfg.block_cfg()
         x = embed_tokens(params["embed"], tokens)
+        length = torch.full((b,), s, dtype=torch.int32, device=x.device)
+        stack = lambda cs: tree_map(lambda *xs: torch.stack(xs), *cs)
+        if cfg.family == "hybrid":
+            # mamba prefill runs the chunked scan and keeps final states;
+            # shared-attn applications emit their own KV caches
+            sb_cfg = self._shared_cfg()
+            mamba_states, attn_caches = [], []
+            for i, flag in enumerate(self._shared_flags()):
+                lp = layer_slice(params["layers"], i)
+                hn = apply_norm(lp["norm"], x, cfg.norm)
+                y, st = self._mamba_prefill(lp["mamba"], hn)
+                x = x + y
+                mamba_states.append(st)
+                if flag:
+                    x, _, c = prefill_decoder_block(params["shared"], x,
+                                                    sb_cfg, max_len)
+                    attn_caches.append(c)
+            x = apply_norm(params["final_norm"], x, cfg.norm)
+            return self._logits(params, x[:, -1:]), {
+                "mamba": stack(mamba_states), "attn": stack(attn_caches),
+                "length": length}
+        bcfg = cfg.block_cfg()
         caches = []
         for i in range(cfg.n_layers):
             x, _, c = prefill_decoder_block(layer_slice(params["layers"], i),
@@ -191,22 +279,49 @@ class Model:
                                             quantized=cfg.kv_cache_quant)
             caches.append(c)
         x = apply_norm(params["final_norm"], x, cfg.norm)
-        length = torch.full((b,), s, dtype=torch.int32, device=x.device)
-        layers = tree_map(lambda *cs: torch.stack(cs), *caches)
-        return self._logits(params, x[:, -1:]), {"layers": layers,
+        return self._logits(params, x[:, -1:]), {"layers": stack(caches),
                                                  "length": length}
+
+    def _mamba_prefill(self, mp: Tree, hn: torch.Tensor):
+        """Mamba2 full-seq pass that also returns the final SSM state.
+
+        It passes ``use_ssm_kernel`` on, where the reference's prefill
+        drops it and always runs the chunked path: both compute the same
+        (tests/test_torch_mamba2.py), and serving is where the kernels run.
+        """
+        cfg = self.cfg
+        return m2.apply_mamba2_with_state(mp, hn, cfg.ssm,
+                                          use_kernel=cfg.use_ssm_kernel)
 
     def decode_step(self, params: Tree, cache: Tree, tokens: torch.Tensor
                     ) -> Tuple[torch.Tensor, Tree]:
         """One token for every sequence. tokens: (b, 1).
 
-        The cache's tensors are updated in place; the returned cache holds
-        them and the advanced length.
+        The cache's tensors are updated in place (the reference returns new
+        ones); the returned cache holds them and the advanced length.
         """
         cfg = self.cfg
-        bcfg = cfg.block_cfg()
         length = cache["length"]
         x = embed_tokens(params["embed"], tokens)
+        if cfg.family == "hybrid":
+            sb_cfg = self._shared_cfg()
+            app = 0
+            for i, flag in enumerate(self._shared_flags()):
+                lp = layer_slice(params["layers"], i)
+                mc = layer_slice(cache["mamba"], i)
+                hn = apply_norm(lp["norm"], x, cfg.norm)
+                y, new = m2.decode_mamba2(lp["mamba"], hn, mc, cfg.ssm)
+                x = x + y
+                for k, t in new.items():
+                    mc[k].copy_(t)
+                if flag:
+                    x, _ = decode_decoder_block(
+                        params["shared"], x, layer_slice(cache["attn"], app),
+                        length, sb_cfg)
+                    app += 1
+            x = apply_norm(params["final_norm"], x, cfg.norm)
+            return self._logits(params, x), dict(cache, length=length + 1)
+        bcfg = cfg.block_cfg()
         for i in range(cfg.n_layers):
             x, _ = decode_decoder_block(layer_slice(params["layers"], i), x,
                                         layer_slice(cache["layers"], i),
@@ -214,3 +329,9 @@ class Model:
         x = apply_norm(params["final_norm"], x, cfg.norm)
         return self._logits(params, x), {"layers": cache["layers"],
                                          "length": length + 1}
+
+
+def _stacked(one: Tree, n: int) -> Tree:
+    """Zeros of ``n`` copies of the cache ``one`` on a leading axis."""
+    return tree_map(lambda t: torch.zeros((n, *t.shape), dtype=t.dtype,
+                                          device=t.device), one)

@@ -90,9 +90,11 @@ def test_prefill_decode_matches_reference_and_forward(arch):
                                **DEC_TOL)
     np.testing.assert_allclose(got[:, 0].numpy(), full[:, k - 1].numpy(),
                                **DEC_TOL)
-    for name, c in bridge.to_numpy(cache["layers"]).items():
-        np.testing.assert_allclose(c, np.asarray(ref_cache["layers"][name]),
-                                   **DEC_TOL)
+    got_c = jax.tree.leaves(bridge.to_numpy(cache))
+    want_c = jax.tree.leaves(ref_cache)
+    assert len(got_c) == len(want_c)
+    for c, w in zip(got_c, want_c):
+        np.testing.assert_allclose(c, np.asarray(w, np.float32), **DEC_TOL)
     for i in range(k, n):
         got, cache = port.decode_step(params, cache, tt[:, i:i + 1])
         want, ref_cache = ref_model.decode_step(ref_params, ref_cache,
