@@ -9,8 +9,9 @@ Phases, in order; any failure exits non-zero:
      each kernel held against its plain version on the card at the main
      paths' shapes and timed beside its plain version, one PyTorch
      library call (where one computes the same function) and its bound:
-     flash attention, the fused RMSNorm, the two SSD-scan passes and the
-     composed SSD scan;
+     flash attention (bf16 tensor-core and fp32 scalar routes), the
+     fused RMSNorm, the two SSD-scan passes (the intra pass, which also
+     takes the chunk cumsum, on both routes) and the composed SSD scan;
   3. reduced qwen3-0.6b and reduced zamba2-1.2b in fp32, the kernel
      paths against the plain ones;
   4. the main paths, each with the launch counts set to 0 just before
@@ -21,12 +22,14 @@ Phases, in order; any failure exits non-zero:
      kernels, the shared attention block through flash attention), then
      one full-width zamba2 forward, the reference's own kernel route;
   5. host wall time against device-busy time (torch.profiler) for one
-     decode step and one prefill of each served model;
+     decode step and one prefill of each served model, and no torch
+     cumsum kernel left in the zamba2 prefill;
   6. one JSON line of per-kernel numbers and, last, the device line.
 """
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -65,6 +68,14 @@ TOL = {torch.float32: dict(atol=2e-5, rtol=2e-4),
 STATE_TOL = dict(atol=1e-3, rtol=1e-2)
 MODEL_TOL = dict(atol=2e-4, rtol=2e-3)
 SERVE_TOL = dict(atol=2e-3, rtol=2e-2)
+#: the chunk cumsum against torch.cumsum (tests/test_torch_cuda.py)
+CUM_TOL = dict(atol=1e-5, rtol=0)
+#: each kernel's device time (ms) at its main-path shape before flash
+#: attention and the SSD intra pass ran on tensor cores, on an H100 80GB
+#: HBM3 at 700 W: constants copied from PERF.md's kernel table, printed for
+#: comparison and kept out of the measured kernels line
+PREV_MS = {"flash_attention": 0.13056, "fused_rmsnorm": 0.00514,
+           "ssd_intra": 0.07731, "ssd_inter": 0.01629}
 
 
 def check(ok: bool, what: str) -> None:
@@ -131,6 +142,8 @@ def check_flash(gen, b, s, h, hkv, d, dtype):
                                size * b * s * d * (2 * h + 2 * hkv), dtype)
     return dict(
         shape=f"b={b} s={s} h={h} hkv={hkv} d={d} {str(dtype)[6:]}",
+        route=("mma.sync bf16" if dtype == torch.bfloat16
+               else "scalar fp32"),
         max_abs_err=err,
         ms=time_ms(lambda: flash_attention_cuda(q, k, v)),
         plain_ms=time_ms(lambda: attention_ref(q, k, v)),
@@ -164,7 +177,10 @@ def check_rmsnorm(gen, shape, dtype):
 def check_ssd(gen, b, s, h, p, n, chunk, dtype):
     """Both SSD passes against their plain versions, and the composed scan
     against the chunked model path, on test_ssd_scan_sweep's input
-    distributions. Returns one timed row per pass."""
+    distributions. The intra pass takes ``log_a`` on the 2^-10 grid, where
+    every cumsum is exact, so its outputs are compared on its own
+    arithmetic; the composed scan takes the unquantised ``log_a``. Returns
+    one timed row per pass."""
     xh = randn(gen, (b, s, h, p), dtype)
     bm, cm = (randn(gen, (b, s, n), dtype) for _ in range(2))
     dt = F.softplus(randn(gen, (b, s, h), torch.float32))
@@ -175,16 +191,18 @@ def check_ssd(gen, b, s, h, p, n, chunk, dtype):
     xc = xh.reshape(b, c, q, h, p)
     bc, cc = (t.reshape(b, c, q, n) for t in (bm, cm))
     dc = dt.reshape(b, c, q, h)
-    cum = torch.cumsum(log_a.reshape(b, c, q, h), dim=2)
+    la = torch.round(log_a.reshape(b, c, q, h) * 1024) / 1024
 
-    got = ssd_intra_cuda(xc, bc, cc, cum, dc)
+    got = ssd_intra_cuda(xc, bc, cc, la, dc)
     torch.cuda.synchronize()
+    cum = torch.cumsum(la, dim=2)
     want = ssd_intra_ref(xc, bc, cc, cum, dc)
     err_intra = max(max_err(g, w, **tol, what=f"ssd_intra {name} {shape}")
                     for g, w, tol, name in zip(
-                        got, want, (TOL[torch.float32], STATE_TOL,
-                                    TOL[torch.float32]),
-                        ("y_intra", "S", "decay")))
+                        got, (*want, cum),
+                        (TOL[torch.float32], STATE_TOL, TOL[torch.float32],
+                         CUM_TOL),
+                        ("y_intra", "S", "decay", "cum")))
     hprev = randn(gen, (b, c, h, n, p), torch.float32)
     y_intra = got[0]
     y = ssd_inter_cuda(cc, cum, hprev, y_intra, dtype)
@@ -200,40 +218,51 @@ def check_ssd(gen, b, s, h, p, n, chunk, dtype):
     max_err(ys, yr, **TOL[dtype], what=f"ssd_scan y {shape}")
     max_err(hs, hr, **STATE_TOL, what=f"ssd_scan final state {shape}")
 
-    # bounds: the work these inputs need (the lower triangle of M, once
-    # per head; C B^T once per chunk) and each input read, output written
-    # once; fp32 arithmetic, so the fp32 peak outside the tensor cores
+    # bounds: the work these inputs need (the cumsum; the lower triangle
+    # of M, once per head; C B^T once per chunk) and each input read,
+    # output written once. The intra pass is bound on the unit its route
+    # runs on: the bf16 tensor cores or the fp32 units outside them; the
+    # inter pass runs on the fp32 units.
     tri = q * (q + 1) / 2
     nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
-    intra_flops = b * c * (2 * n * tri + h * (3 * tri + 2 * p * tri
+    intra_flops = b * c * (2 * n * tri + h * (q + 3 * tri + 2 * p * tri
                                               + 2 * q * n * p + q * p))
     inter_flops = b * c * h * (2 * q * n * p + 2 * q * p)
-    intra_bound = bound(intra_flops, nbytes(xc, bc, cc, cum, dc, *got),
-                        torch.float32)
+    intra_bytes = nbytes(xc, bc, cc, la, dc, *got)
+    intra_bound = bound(intra_flops, intra_bytes, dtype)
     inter_bound = bound(inter_flops, nbytes(cc, cum, hprev, y_intra, y),
                         torch.float32)
+    cum_out = got[3]
     rows = []
     for err, (ms_bound, bound_by), kernel, plain in (
             (err_intra, intra_bound,
-             lambda: ssd_intra_cuda(xc, bc, cc, cum, dc),
-             lambda: ssd_intra_ref(xc, bc, cc, cum, dc)),
+             lambda: ssd_intra_cuda(xc, bc, cc, la, dc),
+             lambda: ssd_intra_ref(xc, bc, cc, torch.cumsum(la, dim=2), dc)),
             (err_inter, inter_bound,
-             lambda: ssd_inter_cuda(cc, cum, hprev, y_intra, dtype),
-             lambda: ssd_inter_ref(cc, cum, hprev, y_intra, dtype))):
+             lambda: ssd_inter_cuda(cc, cum_out, hprev, y_intra, dtype),
+             lambda: ssd_inter_ref(cc, cum_out, hprev, y_intra, dtype))):
         rows.append(dict(shape=shape, max_abs_err=err, ms=time_ms(kernel),
                          plain_ms=time_ms(plain), library_ms=None,
                          bound_ms=ms_bound, bound_by=bound_by))
+    rows[0].update(
+        route=("mma.sync bf16" if dtype == torch.bfloat16
+               else "scalar fp32"),
+        cumsum_ms=time_ms(lambda: torch.cumsum(la, dim=2)))
     return rows
 
 
 def print_rows(name, rows):
     for row in rows:
         lib = row["library_ms"]
-        lib = "none" if lib is None else f"{lib:.4f} ms"
-        print(f"  {name} {row['shape']}: kernel {row['ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.4f} ms, library {lib}, bound "
+        lib = "none" if lib is None else f"{lib:.5f} ms"
+        extra = ""
+        if "cumsum_ms" in row:
+            extra = f" [torch.cumsum alone {row['cumsum_ms']:.5f} ms]"
+        route = f" ({row['route']})" if "route" in row else ""
+        print(f"  {name}{route} {row['shape']}: kernel {row['ms']:.5f} ms, "
+              f"plain {row['plain_ms']:.5f} ms, library {lib}, bound "
               f"{row['bound_ms']:.5f} ms ({row['bound_by']}), max abs err "
-              f"{row['max_abs_err']:.3g}")
+              f"{row['max_abs_err']:.3g}{extra}")
 
 
 # --------------------------------------------------------------------------
@@ -394,10 +423,12 @@ def where_time_goes(model, params, engine, kernels, n: int = 5):
     """Host wall time against device-busy time (the sum of the kernels'
     times in a torch.profiler trace) for one decode step of the 4-slot
     batch and one 512-token prefill, warm, as the main path runs them;
-    ``kernels`` names the port's kernels by a substring of their names."""
+    ``kernels`` names the port's kernels by a substring of their names.
+    Returns {call: its kernel rows, longest first}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     prompt = torch.randint(0, model.cfg.vocab, (1, 512), device="cuda")
+    traces = {}
     calls = {
         "decode step, 4 slots": lambda: model.decode_step(
             params, engine.cache, engine.last_tokens),
@@ -420,6 +451,7 @@ def where_time_goes(model, params, engine, kernels, n: int = 5):
         rows = sorted((r for r in prof.key_averages()
                        if r.device_type == DeviceType.CUDA),
                       key=lambda r: -r.self_device_time_total)
+        traces[name] = rows
         device_ms = sum(r.self_device_time_total for r in rows) / n / 1e3
         if device_ms == 0.0:
             print(f"  {name}: wall {wall_ms:.3f} ms; device time not "
@@ -435,6 +467,7 @@ def where_time_goes(model, params, engine, kernels, n: int = 5):
         for r in rows[:6]:
             print(f"    {r.self_device_time_total / n / 1e3:.3f} ms "
                   f"x{r.count // n} {r.key[:90]}")
+    return traces
 
 
 def rmsnorm_entry_point():
@@ -472,28 +505,41 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {stem}: {line.strip()}")
+        spills = re.findall(r"[1-9]\d* bytes spill", log)
+        check(not spills, f"{stem}: ptxas reports spills {spills}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    # qwen3's heads at b = 1, 4 and ragged lengths, MQA, zamba2's shared
+    # block (32/32, d = 64), and d = 32; then the fp32 route at qwen3's
+    # and zamba2's prefill shapes
     flash_rows = [check_flash(gen, b, s, 16, 8, 128, torch.bfloat16)
                   for b in (1, 4) for s in (37, 128, 512, 1000)]
     flash_rows += [check_flash(gen, 1, 512, 16, 1, 64, torch.bfloat16),
-                   check_flash(gen, 1, 512, 16, 8, 128, torch.float32),
-                   check_flash(gen, 1, 512, 32, 32, 64, torch.bfloat16)]
+                   check_flash(gen, 1, 512, 32, 32, 64, torch.bfloat16),
+                   check_flash(gen, 1, 512, 16, 8, 32, torch.bfloat16)]
+    flash_f32 = [check_flash(gen, 1, 512, 16, 8, 128, torch.float32),
+                 check_flash(gen, 1, 512, 32, 32, 64, torch.float32)]
     print_rows("flash_attention", flash_rows)
+    print_rows("flash_attention", flash_f32)
     rms_rows = [check_rmsnorm(gen, shape, dtype)
                 for shape in ((2048, 1024), (2, 64, 128), (4, 100, 256),
                               (512, 384), (1, 7, 64))
                 for dtype in (torch.bfloat16, torch.float32)]
     print_rows("fused_rmsnorm", rms_rows)
-    # zamba2-1.2b's prefill shape first (4 chunks of 128), then the
+    # zamba2-1.2b's prefill shape (4 chunks of 128) in bf16, the main
+    # path's type, and in fp32, then a short prompt (q = 77) and the
     # reference's sweep (tests/test_kernels.py) in both types
-    ssd_rows = [check_ssd(gen, 1, 512, 64, 64, 64, 128, torch.bfloat16)]
+    ssd_rows = [check_ssd(gen, 1, 512, 64, 64, 64, 128, dtype)
+                for dtype in (torch.bfloat16, torch.float32)]
     ssd_rows += [check_ssd(gen, *shape, dtype)
-                 for shape in ((2, 128, 4, 32, 16, 32),
+                 for shape in ((1, 77, 64, 64, 64, 128),
+                               (2, 128, 4, 32, 16, 32),
                                (1, 256, 8, 64, 64, 128),
                                (2, 64, 2, 16, 8, 16))
-                 for dtype in (torch.float32, torch.bfloat16)]
-    print_rows("ssd_intra", [rows[0] for rows in ssd_rows])
+                 for dtype in (torch.bfloat16, torch.float32)]
+    for dtype in ("bfloat16", "float32"):
+        print_rows("ssd_intra", [rows[0] for rows in ssd_rows
+                                 if rows[0]["shape"].endswith(dtype)])
     print_rows("ssd_inter", [rows[1] for rows in ssd_rows])
 
     err = model_parity()
@@ -518,12 +564,22 @@ def main() -> int:
     print_serving("zamba2-1.2b", engine, results, lengths, wall,
                   hybrid_launches)
     print("where the time goes (zamba2-1.2b bf16, warm):")
-    where_time_goes(model, params, engine,
-                    {"ssd_intra": "ssd_intra", "ssd_inter": "ssd_inter",
-                     "flash attention": "flash_fwd"})
+    traces = where_time_goes(model, params, engine,
+                             {"ssd_intra": "ssd_intra",
+                              "ssd_inter": "ssd_inter",
+                              "flash attention": "flash_fwd"})
+    # the chunk cumsum is folded into the intra pass: torch's scan kernel
+    # (tensor_kernel_scan_outer_dim) must not appear in the prefill
+    prefill_rows = traces.get("prefill, 512 tokens", [])
+    check(bool(prefill_rows), "the profiler saw the zamba2 prefill's kernels")
+    scans = [r.key for r in prefill_rows
+             if "cumsum" in r.key.lower() or "scan_outer_dim" in r.key]
+    check(not scans, f"no cumsum kernel in the zamba2 prefill, got {scans}")
+    print(f"  no cumsum kernel among the zamba2 prefill's "
+          f"{len(prefill_rows)} kernel rows")
 
     kernels = [
-        dict(name="flash_attention", route="cuda",
+        dict(name="flash_attention", route="cuda mma.sync bf16 + scalar fp32",
              source="src/repro_torch/kernels/flash_attention/csrc/"
                     "flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:101",
@@ -535,7 +591,7 @@ def main() -> int:
              source="src/repro_torch/kernels/rmsnorm/kernel.py",
              replaces="src/repro/kernels/rmsnorm/kernel.py:40",
              launches=rms_launches),
-        dict(name="ssd_intra", route="cuda",
+        dict(name="ssd_intra", route="cuda mma.sync bf16 + scalar fp32",
              source="src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan/kernel.py:91",
              launches=hybrid_launches["ssd_intra"]),
@@ -546,12 +602,19 @@ def main() -> int:
     ]
     # the rows at each kernel's main-path shape: flash at a full-length
     # qwen3 prompt (b=1 s=512), RMSNorm on 4 x 512 tokens of d=1024 bf16,
-    # the SSD passes at a 512-token zamba2 prefill
+    # the SSD passes at a 512-token zamba2 prefill; the fp32 routes of
+    # flash and the intra pass at the same shapes beside them
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "shape")
     main_rows = (flash_rows[2], rms_rows[0], ssd_rows[0][0], ssd_rows[0][1])
     for entry, row in zip(kernels, main_rows):
-        entry.update({k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                          "bound_ms", "bound_by",
-                                          "library_ms")}, shape=row["shape"])
+        entry.update({k: row[k] for k in keys})
+        print(f"  {entry['name']}: {row['ms']:.5f} ms at its main shape, "
+              f"{PREV_MS[entry['name']]:.5f} ms before the tensor-core "
+              f"routes (constant from PERF.md, not measured here)")
+    kernels[0]["fp32"] = {k: flash_f32[0][k] for k in keys}
+    kernels[2]["fp32"] = {k: ssd_rows[1][0][k] for k in keys}
+    kernels[2]["cumsum_ms"] = ssd_rows[0][0]["cumsum_ms"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

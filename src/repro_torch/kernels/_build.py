@@ -2,8 +2,9 @@
 
 Every ``kernels/**/csrc/*.cu`` compiles on its own with ``nvcc`` for
 ``sm_90a`` into ``<repo>/build/kernels/<stem>-<hash>.so``, at first
-use. The hash covers the source text and the flags, so an edited
-source rebuilds and an unchanged one is loaded as built. The sources
+use. The hash covers the source text, the shared headers
+(``kernels/csrc/*.cuh``) and the flags, so an edited source or header
+rebuilds and an unchanged one is loaded as built. The sources
 expose a plain C interface: no PyTorch header is compiled, which keeps
 a build to seconds.
 """
@@ -37,7 +38,10 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes()
+                       for h in sorted(KERNELS_DIR.glob("**/csrc/*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
 
 

@@ -29,7 +29,9 @@ def _fn():
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True) -> torch.Tensor:
     """q: (b, sq, h, d); k/v: (b, skv, hkv, d), any strides with head_dim
-    contiguous. Returns a contiguous (b, sq, h, d) tensor of q's type."""
+    contiguous (in bf16, rows on 16-byte boundaries). Returns a contiguous
+    (b, sq, h, d) tensor of q's type. float32 runs the scalar route,
+    bfloat16 the tensor-core route."""
     b, sq, h, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -43,6 +45,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if any(t.device != q.device or t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("q, k, v must share one CUDA device and have a "
                          "contiguous head_dim")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16 or any(
+                    st % 8 for st, n in zip(t.stride()[:3], t.shape[:3])
+                    if n > 1):
+                raise ValueError(
+                    f"{name}: the bf16 kernel copies rows in 16-byte pieces, "
+                    f"so its start and its batch, seq and head strides must "
+                    f"be multiples of 16 bytes (strides {t.stride()})")
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_int64 * 12)(*[s for t in (q, k, v, o)
                                       for s in t.stride()[:3]])

@@ -1,76 +1,363 @@
 // Mamba2 SSD chunked scan, the two passes around the chunk recurrence, for
 // Hopper (sm_90a).
 //
-// ssd_intra_fwd replaces the TPU Pallas kernel ssd_intra
-// (repro/kernels/ssd_scan/kernel.py, body _intra_kernel). For one
-// (batch, chunk, head) it computes, in fp32 from inputs cast on load:
+// The intra pass replaces the TPU Pallas kernel ssd_intra
+// (repro/kernels/ssd_scan/kernel.py, body _intra_kernel) and the chunk
+// cumsum that repro/kernels/ssd_scan/ops.py takes before it. For one
+// (batch, chunk, head) it computes, with fp32 arithmetic:
+//   cum[i]   = log_a[0] + ... + log_a[i], summed in index order in fp32
 //   M[i, j]  = (C_i . B_j) * exp(cum_i - cum_j) * dt_j   for j <= i, else 0
 //   y[i, :]  = sum_j M[i, j] x_j
 //   S[n, p]  = sum_j B_j[n] (x_j[p] * exp(cum_last - cum_j) * dt_j)
 //   dec      = exp(cum_last)
-// ssd_inter_fwd replaces ssd_inter (body _inter_kernel):
+// and writes cum as a fourth output for the inter pass and the chunk
+// recurrence. The sequential fp32 sum is the one torch.cumsum takes along
+// a non-innermost axis on the card, so cum equals it bit for bit.
+// The inter pass replaces ssd_inter (body _inter_kernel):
 //   y[i, :]  = y_intra[i, :] + (C_i . h_prev) * exp(cum_i), cast to the
 //   output type.
 // The chunk recurrence h_c = h_{c-1} dec_c + S_c between them stays in
 // torch, as the reference keeps it in a lax.scan outside any kernel.
 //
 // Layout (contiguous, the reference's): xh (b, c, q, h, p); bm/cm
-// (b, c, q, n) in the model type; cum/dt (b, c, q, h) fp32; y_intra
+// (b, c, q, n) in the model type; log_a/dt/cum (b, c, q, h) fp32; y_intra
 // (b, c, q, h, p), S and h_prev (b, c, h, n, p), dec (b, c, h) fp32.
 //
-// Design. The TPU block held a whole (batch, chunk): its (q, q, h) decay
-// tensor is 4 MB at q = 128, h = 64, far above the 227 KB of shared
-// memory a block can have here. So heads go into the grid: one block per
-// (head, batch x chunk), 256 threads as a 16 x 16 grid. The intra block
-// keeps x[:, h, :] (q x p), B and C (q x n), cum, dt and its (q x q)
-// weight matrix M in shared memory as fp32: 167 KB at q = 128,
-// n = p = 64, behind the opt-in above 48 KB. G = C B^T is shared by all
-// heads of a chunk and is recomputed per head (2 MFLOP at full width):
-// that keeps the block independent of the others and needs no second
-// pass or global scratch. Products run on 64-row groups, each thread
-// holding a 4 x 4 register tile (rows ty + 16 i, columns tx + 16 j);
-// group pairs wholly above the diagonal are skipped, and the exp is taken
-// only where j <= i, so the upper triangle never overflows. The inter
-// block keeps C and h_prev[h] (n x p) in shared memory (50 KB at full
-// width) and applies the state to each 64-row group.
+// The TPU block held a whole (batch, chunk): its (q, q, h) decay tensor is
+// 4 MB at q = 128, h = 64, far above the 227 KB of shared memory a block
+// can have here. So heads go into the grid: one block per (head,
+// batch x chunk), and C B^T, shared by all heads of a chunk, is recomputed
+// per head (2 MFLOP at full width), which keeps blocks independent with
+// no second pass or global scratch.
+//
+// Intra, bf16 inputs (ssd_intra_mma, the model path): tensor cores.
+// x, B and C are staged as bf16 by 16-byte cp.async (55 KB at q = 128,
+// n = p = 64, rows padded by 16 bytes so ldmatrix is conflict-free), which
+// lets several blocks share an SM. While the copies fly, one thread scans
+// log_a. Then 8 warps split the work: warps 0-3 each own two 16-row tiles
+// of y (tiles w and 7 - w, so the triangle is shared evenly), warps 4-7 a
+// 16-column slice of S each. All products run on mma.sync m16n8k16 with
+// fp32 accumulation:
+//   G = C B^T, exact bf16 products, per 16 x 16 tile of the triangle;
+//   y = M x, with M built in registers from G's accumulators (exp taken
+//   only where j <= i) and fed straight to the product, never stored;
+//   S = B^T (w x), with w x formed in registers from x's fragments.
+// M and w x are fp32; each goes in as bf16 parts (hi, mid, lo) against
+// the exact bf16 operand, each part adding 8 bits of significand: three
+// parts of M (y keeps the fp32 tolerance), two of w x (S keeps the state
+// tolerance). q pads to 16 rows with zeros, n to 16 columns.
+//
+// Intra, fp32 inputs (ssd_intra_f32): scalar fp32 FMAs from shared
+// memory, the first version's design with the same cumsum prologue, kept
+// because tensor cores cannot hold the fp32 tolerance on fp32 inputs. It
+// stages x, B, C, cum, dt and the (q x q) weight matrix as fp32 (167 KB,
+// one block per SM) and runs 4 x 4 register tiles on 64-row groups.
 //
 // What bounds it on the H100: at b = 1, s = 512, q = 128, h = 64,
-// n = p = 64 the intra pass needs ~0.56 GFLOP (lower-triangle M x, S, and
-// G once per chunk) against ~17 MB moved, so at the fp32 peak outside
-// the tensor cores (67 TFLOP/s) its bound is the operations (~8 us); the
-// inter pass does ~0.27 GFLOP on ~17 MB and is bound by the bytes
-// (~5 us). This first version runs scalar fp32 FMAs fed from shared
-// memory, and recomputes G per head; bf16 mma/wgmma with TMA loads is
-// the later step.
+// n = p = 64 the intra pass needs ~0.56 GFLOP against ~17 MB moved. On
+// the bf16 tensor cores (989 TFLOP/s) the operations take ~0.6 us and the
+// bytes ~5 us: the bf16 route is bound by the bytes. At the fp32 peak
+// outside the tensor cores (67 TFLOP/s) the operations take ~8 us: the
+// fp32 route is bound by the operations. The inter pass (not redesigned:
+// scalar, C and h_prev[h] in 50 KB of shared memory) does ~0.27 GFLOP on
+// ~17 MB and is bound by the bytes (~5 us).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "../../csrc/mma_sm90.cuh"
+
 namespace {
 
-constexpr int NT = 256;    // threads per block, a 16 x 16 grid
+using namespace mma_sm90;
+
+constexpr int NT = 256;    // threads per block, a 16 x 16 grid (scalar)
 constexpr int TILE = 64;   // rows of a register-tiled group, 4 per thread
 constexpr int Q_MAX = 128; // longest chunk
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
 }
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float x) {
+template <> __device__ __forceinline__ bf16 from_f32<bf16>(float x) {
   return __float2bfloat16(x);
 }
 
 __host__ __device__ __forceinline__ int pad_rows(int q) {
   return (q + TILE - 1) / TILE * TILE;
 }
+__host__ __device__ __forceinline__ int pad16(int q) {
+  return (q + 15) / 16 * 16;
+}
+
+// cum[0..q) = inclusive prefix sums of cum[0..q) in index order, by one
+// thread: the order of torch.cumsum along a non-innermost axis on the card
+__device__ __forceinline__ void scan_in_order(float* cum, int q) {
+  float acc = 0.f;
+  for (int r = 0; r < q; ++r) {
+    acc += cum[r];
+    cum[r] = acc;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// intra, bf16 inputs: mma.sync
+// ---------------------------------------------------------------------------
+
+constexpr int MNT = 256;     // threads per block: 8 warps
+// bf16 parts of M in y = M x: two (16 bits of M) left y_intra up to 1e-3
+// from the fp32 plain version at full width, outside its fp32 tolerance;
+// three keep all 24 bits
+constexpr int M_PARTS = 3;
+// bf16 parts of w x in S = B^T (w x): two hold the state tolerance
+constexpr int WX_PARTS = 2;
 
 template <int N, int P>
-size_t intra_smem_bytes(int q) {
+struct MmaShape {
+  static constexpr int NP = N < 16 ? 16 : N;  // state padded to mma depth
+  static constexpr int LDN = NP + 8;          // padded rows (elements)
+  static constexpr int LDP = P + 8;
+};
+
+template <int N, int P>
+size_t intra_mma_smem_bytes(int q) {
+  using S = MmaShape<N, P>;
+  const size_t qp = pad16(q);
+  // C, B, x as bf16; cum, dt, w as fp32
+  return qp * (2 * S::LDN + S::LDP) * sizeof(bf16) + 3 * qp * sizeof(float);
+}
+
+// rows [16 r, 16 r + 16) of y = M x, M = (C B^T) exp(cum_i - cum_j) dt_j
+template <int N, int P>
+__device__ __forceinline__ void intra_rows(int r, const bf16* sC,
+                                           const bf16* sB, const bf16* sX,
+                                           const float* sCum,
+                                           const float* sDt, int q,
+                                           float* yp, int64_t row_hp) {
+  using S = MmaShape<N, P>;
+  constexpr int KN = S::NP / 16;  // k steps of C B^T
+  constexpr int PT = P / 8;       // 8-column tiles of y
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+
+  uint32_t cf[KN][4];
+#pragma unroll
+  for (int kd = 0; kd < KN; ++kd)
+    ldmatrix_x4(cf[kd], sC + (16 * r + (lane & 15)) * S::LDN + kd * 16 +
+                            (lane >> 4) * 8);
+  const int i0 = 16 * r + g;  // rows i0 and i0 + 8
+  const float cum_i[2] = {sCum[i0], sCum[i0 + 8]};
+
+  float acc[PT][4];
+#pragma unroll
+  for (int j = 0; j < PT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int jt = 0; jt <= r; ++jt) {
+    // G for columns [16 jt, 16 jt + 16): two 8-column tiles
+    float gm[2][4];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) gm[nt][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < KN; ++kd) {
+      uint32_t bf[4];
+      ldmatrix_x4(bf, sB + (16 * jt + (lane & 7) + ((lane >> 4) << 3)) *
+                               S::LDN +
+                          kd * 16 + ((lane >> 3) & 1) * 8);
+      mma_bf16(gm[0], cf[kd], bf[0], bf[1]);
+      mma_bf16(gm[1], cf[kd], bf[2], bf[3]);
+    }
+    // M in registers; the exp only where j <= i
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = i0 + (e >> 1) * 8;
+        const int j = 16 * jt + 8 * nt + 2 * t + (e & 1);
+        float m = 0.f;
+        if (j <= i && i < q)
+          m = gm[nt][e] * expf(cum_i[e >> 1] - sCum[j]) * sDt[j];
+        gm[nt][e] = m;
+      }
+    // the A fragment of M for k = j: (g, 2t..), (g + 8, 2t..), then + 8
+    uint32_t mf[4][M_PARTS];
+    split_bf16<M_PARTS>(gm[0][0], gm[0][1], mf[0]);
+    split_bf16<M_PARTS>(gm[0][2], gm[0][3], mf[1]);
+    split_bf16<M_PARTS>(gm[1][0], gm[1][1], mf[2]);
+    split_bf16<M_PARTS>(gm[1][2], gm[1][3], mf[3]);
+#pragma unroll
+    for (int pn = 0; pn < P / 16; ++pn) {
+      uint32_t xf[4];
+      ldmatrix_x4_trans(xf, sX + (16 * jt + (lane & 7) +
+                                  (((lane >> 3) & 1) << 3)) * S::LDP +
+                                pn * 16 + ((lane >> 4) << 3));
+#pragma unroll
+      for (int part = 0; part < M_PARTS; ++part) {
+        const uint32_t a[4] = {mf[0][part], mf[1][part], mf[2][part],
+                               mf[3][part]};
+        mma_bf16(acc[2 * pn], a, xf[0], xf[1]);
+        mma_bf16(acc[2 * pn + 1], a, xf[2], xf[3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int i = i0 + 8 * h2;
+    if (i >= q) continue;
+    float* row = yp + i * row_hp;
+#pragma unroll
+    for (int pt = 0; pt < PT; ++pt)
+      *reinterpret_cast<float2*>(row + pt * 8 + 2 * t) =
+          make_float2(acc[pt][2 * h2], acc[pt][2 * h2 + 1]);
+  }
+}
+
+// columns [16 pu, 16 pu + 16) of S = B^T (w x), w_j = exp(cum_last -
+// cum_j) dt_j
+template <int N, int P>
+__device__ __forceinline__ void intra_state(int pu, const bf16* sB,
+                                            const bf16* sX, const float* sW,
+                                            int qp, float* sp) {
+  using S = MmaShape<N, P>;
+  constexpr int NR = S::NP / 16;  // 16-row tiles of S
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+
+  float acc[NR][2][4];
+#pragma unroll
+  for (int a = 0; a < NR; ++a)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[a][nt][e] = 0.f;
+
+  for (int j0 = 0; j0 < qp; j0 += 16) {
+    // x[j0 + 2t.., 16 pu + g] (b0) and x[j0 + 8 + 2t.., ...] (b1), for the
+    // two 8-column tiles; times w_j, in bf16 parts
+    uint32_t xf[4];
+    ldmatrix_x4_trans(xf, sX + (j0 + (lane & 7) + (((lane >> 3) & 1) << 3)) *
+                                   S::LDP +
+                              16 * pu + ((lane >> 4) << 3));
+    const float w[4] = {sW[j0 + 2 * t], sW[j0 + 2 * t + 1],
+                        sW[j0 + 8 + 2 * t], sW[j0 + 9 + 2 * t]};
+    uint32_t wf[4][WX_PARTS];
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      const float2 xv = unpack_bf16(xf[f]);
+      const int wi = (f & 1) * 2;  // b0 registers take j0 + 2t, b1 + 8
+      split_bf16<WX_PARTS>(xv.x * w[wi], xv.y * w[wi + 1], wf[f]);
+    }
+#pragma unroll
+    for (int a = 0; a < NR; ++a) {
+      // A = B^T: rows n, k = j
+      uint32_t bt[4];
+      ldmatrix_x4_trans(bt, sB + (j0 + (lane & 7) + ((lane >> 4) << 3)) *
+                                     S::LDN +
+                                16 * a + ((lane >> 3) & 1) * 8);
+#pragma unroll
+      for (int part = 0; part < WX_PARTS; ++part) {
+        mma_bf16(acc[a][0], bt, wf[0][part], wf[1][part]);
+        mma_bf16(acc[a][1], bt, wf[2][part], wf[3][part]);
+      }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < NR; ++a)
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int n = 16 * a + g + 8 * h2;
+      if (n >= N) continue;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+        *reinterpret_cast<float2*>(sp + n * P + 16 * pu + 8 * nt + 2 * t) =
+            make_float2(acc[a][nt][2 * h2], acc[a][nt][2 * h2 + 1]);
+    }
+}
+
+template <int N, int P>
+__global__ void __launch_bounds__(MNT)
+ssd_intra_mma(const bf16* __restrict__ xh, const bf16* __restrict__ bm,
+              const bf16* __restrict__ cm, const float* __restrict__ log_a,
+              const float* __restrict__ dt, float* __restrict__ y,
+              float* __restrict__ s_out, float* __restrict__ dec,
+              float* __restrict__ cum_out, int q, int h) {
+  static_assert(P % 16 == 0 && N % 8 == 0, "unsupported (n, p)");
+  using S = MmaShape<N, P>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int qp = pad16(q);
+  bf16* sC = reinterpret_cast<bf16*>(smem_raw);  // qp x LDN
+  bf16* sB = sC + qp * S::LDN;                   // qp x LDN
+  bf16* sX = sB + qp * S::LDN;                   // qp x LDP
+  float* sCum = reinterpret_cast<float*>(sX + qp * S::LDP);  // qp
+  float* sDt = sCum + qp;                                    // qp
+  float* sW = sDt + qp;                                      // qp
+
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int ih = blockIdx.x;
+  const int64_t bc = blockIdx.y;  // batch * n_chunks + chunk
+  const int64_t row_hp = (int64_t)h * P;
+  const bf16* xp = xh + bc * q * row_hp + (int64_t)ih * P;
+  const bf16* bp = bm + bc * q * N;
+  const bf16* cp = cm + bc * q * N;
+  const int64_t hq0 = bc * q * h + ih;  // (b, c, q, h) index of row 0
+
+  // stage the chunk as bf16; padded rows and state columns are zero
+  constexpr int CN = S::NP / 8, CP = P / 8;  // 16-byte pieces per row
+  for (int idx = tid; idx < qp * CN; idx += MNT) {
+    const int r = idx / CN, c = idx % CN;
+    const bool live = r < q && c * 8 < N;
+    const int64_t off = live ? (int64_t)r * N + c * 8 : 0;
+    cp_async16(sC + r * S::LDN + c * 8, cp + off, live);
+    cp_async16(sB + r * S::LDN + c * 8, bp + off, live);
+  }
+  for (int idx = tid; idx < qp * CP; idx += MNT) {
+    const int r = idx / CP, c = idx % CP;
+    const bool live = r < q;
+    cp_async16(sX + r * S::LDP + c * 8, xp + (live ? r * row_hp : 0) + c * 8,
+               live);
+  }
+  cp_async_commit();
+
+  // the cumsum, while the copies fly
+  for (int r = tid; r < qp; r += MNT) {
+    sCum[r] = r < q ? log_a[hq0 + (int64_t)r * h] : 0.f;
+    sDt[r] = r < q ? dt[hq0 + (int64_t)r * h] : 0.f;
+  }
+  __syncthreads();
+  if (tid == 0) scan_in_order(sCum, q);
+  __syncthreads();
+  const float cum_last = sCum[q - 1];
+  for (int r = tid; r < qp; r += MNT) {
+    if (r < q) cum_out[hq0 + (int64_t)r * h] = sCum[r];
+    sW[r] = r < q ? expf(cum_last - sCum[r]) * sDt[r] : 0.f;
+  }
+  if (tid == 0) dec[bc * h + ih] = expf(cum_last);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  if (warp < 4) {
+    const int rt = qp / 16;  // 16-row tiles: warp w takes w and rt - 1 - w
+    if (warp < (rt + 1) / 2) {
+      float* yp = y + bc * q * row_hp + (int64_t)ih * P;
+      intra_rows<N, P>(warp, sC, sB, sX, sCum, sDt, q, yp, row_hp);
+      if (rt - 1 - warp > warp)
+        intra_rows<N, P>(rt - 1 - warp, sC, sB, sX, sCum, sDt, q, yp, row_hp);
+    }
+  } else if (warp - 4 < P / 16) {
+    intra_state<N, P>(warp - 4, sB, sX, sW, qp,
+                      s_out + (bc * h + ih) * (int64_t)(N * P));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// intra, fp32 inputs: scalar FMAs
+// ---------------------------------------------------------------------------
+
+template <int N, int P>
+size_t intra_f32_smem_bytes(int q) {
   const int qp = pad_rows(q);
   // C, B (rows padded by one float), x, M (q_pad x (q_pad + 1)), cum, dt
   return sizeof(float) *
@@ -78,18 +365,12 @@ size_t intra_smem_bytes(int q) {
 }
 
 template <int N, int P>
-size_t inter_smem_bytes(int q) {
-  const int qp = pad_rows(q);
-  // C, h_prev, exp(cum)
-  return sizeof(float) * ((size_t)qp * (N + 1) + N * (P + 1) + qp);
-}
-
-template <typename T, int N, int P>
 __global__ void __launch_bounds__(NT)
-ssd_intra(const T* __restrict__ xh, const T* __restrict__ bm,
-          const T* __restrict__ cm, const float* __restrict__ cum,
-          const float* __restrict__ dt, float* __restrict__ y,
-          float* __restrict__ s_out, float* __restrict__ dec, int q, int h) {
+ssd_intra_f32(const float* __restrict__ xh, const float* __restrict__ bm,
+              const float* __restrict__ cm, const float* __restrict__ log_a,
+              const float* __restrict__ dt, float* __restrict__ y,
+              float* __restrict__ s_out, float* __restrict__ dec,
+              float* __restrict__ cum_out, int q, int h) {
   static_assert(P % 16 == 0, "head_dim must be a multiple of 16");
   constexpr int LDN = N + 1, LDP = P + 1;
   constexpr int NR = (N + 15) / 16;  // state rows per thread in S
@@ -110,28 +391,30 @@ ssd_intra(const T* __restrict__ xh, const T* __restrict__ bm,
   const int64_t bc = blockIdx.y;  // batch * n_chunks + chunk
   const int64_t row_hp = (int64_t)h * P;
 
-  const T* xp = xh + bc * q * row_hp + (int64_t)ih * P;
-  const T* bp = bm + bc * q * N;
-  const T* cp = cm + bc * q * N;
-  const float* cump = cum + bc * q * h + ih;
-  const float* dtp = dt + bc * q * h + ih;
+  const float* xp = xh + bc * q * row_hp + (int64_t)ih * P;
+  const float* bp = bm + bc * q * N;
+  const float* cp = cm + bc * q * N;
+  const int64_t hq0 = bc * q * h + ih;  // (b, c, q, h) index of row 0
 
-  // stage the chunk in fp32; rows past q are zero
+  // stage the chunk; rows past q are zero
   for (int idx = tid; idx < qp * N; idx += NT) {
     const int r = idx / N, k = idx % N;
     const bool live = r < q;
-    sC[r * LDN + k] = live ? to_f32(cp[r * N + k]) : 0.f;
-    sB[r * LDN + k] = live ? to_f32(bp[r * N + k]) : 0.f;
+    sC[r * LDN + k] = live ? cp[r * N + k] : 0.f;
+    sB[r * LDN + k] = live ? bp[r * N + k] : 0.f;
   }
   for (int idx = tid; idx < qp * P; idx += NT) {
     const int r = idx / P, k = idx % P;
-    sX[r * LDP + k] = r < q ? to_f32(xp[r * row_hp + k]) : 0.f;
+    sX[r * LDP + k] = r < q ? xp[r * row_hp + k] : 0.f;
   }
   for (int r = tid; r < qp; r += NT) {
-    sCum[r] = r < q ? cump[(int64_t)r * h] : 0.f;
-    sDt[r] = r < q ? dtp[(int64_t)r * h] : 0.f;
+    sCum[r] = r < q ? log_a[hq0 + (int64_t)r * h] : 0.f;
+    sDt[r] = r < q ? dt[hq0 + (int64_t)r * h] : 0.f;
   }
   __syncthreads();
+  if (tid == 0) scan_in_order(sCum, q);
+  __syncthreads();
+  for (int r = tid; r < q; r += NT) cum_out[hq0 + (int64_t)r * h] = sCum[r];
 
   // M = (C B^T) * L * dt on the lower triangle, group pair by group pair
   const int ng = qp / TILE;
@@ -246,6 +529,17 @@ ssd_intra(const T* __restrict__ xh, const T* __restrict__ bm,
   }
 }
 
+// ---------------------------------------------------------------------------
+// inter: scalar FMAs, both types
+// ---------------------------------------------------------------------------
+
+template <int N, int P>
+size_t inter_smem_bytes(int q) {
+  const int qp = pad_rows(q);
+  // C, h_prev, exp(cum)
+  return sizeof(float) * ((size_t)qp * (N + 1) + N * (P + 1) + qp);
+}
+
 template <typename T, int N, int P>
 __global__ void __launch_bounds__(NT)
 ssd_inter(const T* __restrict__ cm, const float* __restrict__ cum,
@@ -314,21 +608,41 @@ ssd_inter(const T* __restrict__ cm, const float* __restrict__ cum,
   }
 }
 
-template <typename T, int N, int P>
-cudaError_t launch_intra(const void* xh, const void* bm, const void* cm,
-                         const void* cum, const void* dt, void* y, void* s,
-                         void* dec, int bc, int q, int h,
-                         cudaStream_t stream) {
-  auto kernel = ssd_intra<T, N, P>;
-  const size_t smem = intra_smem_bytes<N, P>(q);
-  cudaError_t err = cudaFuncSetAttribute(
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
+
+template <typename K>
+cudaError_t set_smem(K kernel, size_t smem) {
+  return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(h, bc), NT, smem, stream>>>(
-      static_cast<const T*>(xh), static_cast<const T*>(bm),
-      static_cast<const T*>(cm), static_cast<const float*>(cum),
-      static_cast<const float*>(dt), static_cast<float*>(y),
-      static_cast<float*>(s), static_cast<float*>(dec), q, h);
+}
+
+template <int N, int P>
+cudaError_t launch_intra(int dtype, const void* xh, const void* bm,
+                         const void* cm, const void* log_a, const void* dt,
+                         void* y, void* s, void* dec, void* cum, int bc,
+                         int q, int h, cudaStream_t stream) {
+  const dim3 grid(h, bc);
+  const float* la = static_cast<const float*>(log_a);
+  const float* dtp = static_cast<const float*>(dt);
+  float *yo = static_cast<float*>(y), *so = static_cast<float*>(s),
+        *deco = static_cast<float*>(dec), *cumo = static_cast<float*>(cum);
+  if (dtype == 1) {
+    const size_t smem = intra_mma_smem_bytes<N, P>(q);
+    cudaError_t err = set_smem(ssd_intra_mma<N, P>, smem);
+    if (err != cudaSuccess) return err;
+    ssd_intra_mma<N, P><<<grid, MNT, smem, stream>>>(
+        static_cast<const bf16*>(xh), static_cast<const bf16*>(bm),
+        static_cast<const bf16*>(cm), la, dtp, yo, so, deco, cumo, q, h);
+  } else {
+    const size_t smem = intra_f32_smem_bytes<N, P>(q);
+    cudaError_t err = set_smem(ssd_intra_f32<N, P>, smem);
+    if (err != cudaSuccess) return err;
+    ssd_intra_f32<N, P><<<grid, NT, smem, stream>>>(
+        static_cast<const float*>(xh), static_cast<const float*>(bm),
+        static_cast<const float*>(cm), la, dtp, yo, so, deco, cumo, q, h);
+  }
   return cudaGetLastError();
 }
 
@@ -338,8 +652,7 @@ cudaError_t launch_inter(const void* cm, const void* cum, const void* hprev,
                          cudaStream_t stream) {
   auto kernel = ssd_inter<T, N, P>;
   const size_t smem = inter_smem_bytes<N, P>(q);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(h, bc), NT, smem, stream>>>(
       static_cast<const T*>(cm), static_cast<const float*>(cum),
@@ -351,20 +664,6 @@ cudaError_t launch_inter(const void* cm, const void* cum, const void* hprev,
 // The (n, p) pairs built: the reference's test sweep (8, 16) and (16, 32),
 // which is also the reduced config's, and the full width (64, 64).
 #define SSD_SHAPES(X) X(8, 16) X(16, 32) X(64, 64)
-
-template <typename T>
-cudaError_t intra_by_shape(int n, int p, const void* xh, const void* bm,
-                           const void* cm, const void* cum, const void* dt,
-                           void* y, void* s, void* dec, int bc, int q, int h,
-                           cudaStream_t stream) {
-#define SSD_CASE(N_, P_)                                                 \
-  if (n == N_ && p == P_)                                                \
-    return launch_intra<T, N_, P_>(xh, bm, cm, cum, dt, y, s, dec, bc, q, \
-                                   h, stream);
-  SSD_SHAPES(SSD_CASE)
-#undef SSD_CASE
-  return cudaErrorInvalidValue;
-}
 
 template <typename T>
 cudaError_t inter_by_shape(int n, int p, const void* cm, const void* cum,
@@ -382,20 +681,23 @@ cudaError_t inter_by_shape(int n, int p, const void* cm, const void* cum,
 }  // namespace
 
 // dtype of xh/bm/cm (intra) or cm/y (inter): 0 = float32, 1 = bfloat16.
-// bc = batch x chunks; 1 <= q <= 128. All tensors contiguous. Each
-// returns cudaGetLastError after the launch (0 on success).
+// bc = batch x chunks; 1 <= q <= 128. All tensors contiguous (bf16 intra
+// inputs on 16-byte boundaries). Each returns cudaGetLastError after the
+// launch (0 on success).
 extern "C" int ssd_intra_fwd(int dtype, int n, int p, const void* xh,
-                             const void* bm, const void* cm, const void* cum,
-                             const void* dt, void* y, void* s, void* dec,
-                             int bc, int q, int h, void* stream) {
-  if (q < 1 || q > Q_MAX) return cudaErrorInvalidValue;
+                             const void* bm, const void* cm,
+                             const void* log_a, const void* dt, void* y,
+                             void* s, void* dec, void* cum, int bc, int q,
+                             int h, void* stream) {
+  if (q < 1 || q > Q_MAX || (dtype != 0 && dtype != 1))
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return intra_by_shape<float>(n, p, xh, bm, cm, cum, dt, y, s, dec, bc, q,
-                                 h, st);
-  if (dtype == 1)
-    return intra_by_shape<__nv_bfloat16>(n, p, xh, bm, cm, cum, dt, y, s,
-                                         dec, bc, q, h, st);
+#define SSD_CASE(N_, P_)                                                    \
+  if (n == N_ && p == P_)                                                   \
+    return launch_intra<N_, P_>(dtype, xh, bm, cm, log_a, dt, y, s, dec, cum, \
+                                bc, q, h, st);
+  SSD_SHAPES(SSD_CASE)
+#undef SSD_CASE
   return cudaErrorInvalidValue;
 }
 
@@ -409,7 +711,7 @@ extern "C" int ssd_inter_fwd(int dtype, int n, int p, const void* cm,
     return inter_by_shape<float>(n, p, cm, cum, hprev, y_intra, y, bc, q, h,
                                  st);
   if (dtype == 1)
-    return inter_by_shape<__nv_bfloat16>(n, p, cm, cum, hprev, y_intra, y,
-                                         bc, q, h, st);
+    return inter_by_shape<bf16>(n, p, cm, cum, hprev, y_intra, y, bc, q, h,
+                                st);
   return cudaErrorInvalidValue;
 }

@@ -20,7 +20,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 @functools.lru_cache(maxsize=None)
 def _fn(name: str):
     fn = getattr(_build.load("ssd_scan"), name)
-    n_ptrs = {"ssd_intra_fwd": 8, "ssd_inter_fwd": 5}[name]
+    n_ptrs = {"ssd_intra_fwd": 9, "ssd_inter_fwd": 5}[name]
     fn.argtypes = [_I, _I, _I] + [_P] * n_ptrs + [_I, _I, _I, _P]
     fn.restype = ctypes.c_int
     return fn
@@ -33,12 +33,13 @@ def _check(q: int, n: int, p: int, model_dtype, tensors, shapes) -> None:
     if model_dtype not in _DTYPES:
         raise TypeError(f"the SSD kernels take float32 or bfloat16 inputs, "
                         f"got {model_dtype}")
+    device = next(iter(tensors.values())).device
     for name, t in tensors.items():
         want_dtype, want_shape = shapes[name]
         if t.dtype != want_dtype or tuple(t.shape) != want_shape:
             raise ValueError(f"{name}: want {want_dtype} {want_shape}, got "
                              f"{t.dtype} {tuple(t.shape)}")
-        if not t.is_contiguous() or t.device != tensors["cum"].device:
+        if not t.is_contiguous() or t.device != device:
             raise ValueError(f"{name} must be contiguous and on the device "
                              f"of the others")
 
@@ -52,25 +53,34 @@ def _launch(name: str, dtype, n: int, p: int, ptrs, bc: int, q: int, h: int,
 
 
 def ssd_intra_cuda(xh: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor,
-                   cum: torch.Tensor, dt: torch.Tensor):
-    """xh: (b, c, q, h, p); bm/cm: (b, c, q, n) of xh's type; cum/dt:
+                   log_a: torch.Tensor, dt: torch.Tensor):
+    """xh: (b, c, q, h, p); bm/cm: (b, c, q, n) of xh's type; log_a/dt:
     (b, c, q, h) fp32. Returns fp32 (y_intra (b, c, q, h, p),
-    S (b, c, h, n, p), chunk decay (b, c, h))."""
+    S (b, c, h, n, p), chunk decay (b, c, h), cum (b, c, q, h), the
+    in-order cumsum of log_a over each chunk). float32 inputs run the
+    scalar route, bfloat16 the tensor-core route."""
     b, c, q, h, p = xh.shape
     n = bm.shape[-1]
     f32 = torch.float32
     _check(q, n, p, xh.dtype,
-           dict(xh=xh, bm=bm, cm=cm, cum=cum, dt=dt),
+           dict(xh=xh, bm=bm, cm=cm, log_a=log_a, dt=dt),
            dict(xh=(xh.dtype, (b, c, q, h, p)), bm=(xh.dtype, (b, c, q, n)),
-                cm=(xh.dtype, (b, c, q, n)), cum=(f32, (b, c, q, h)),
+                cm=(xh.dtype, (b, c, q, n)), log_a=(f32, (b, c, q, h)),
                 dt=(f32, (b, c, q, h))))
+    if xh.dtype == torch.bfloat16:
+        for name, t in (("xh", xh), ("bm", bm), ("cm", cm)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name}: the bf16 kernel copies rows in "
+                                 f"16-byte pieces, so it must start on a "
+                                 f"16-byte boundary")
     y = torch.empty((b, c, q, h, p), dtype=f32, device=xh.device)
     s = torch.empty((b, c, h, n, p), dtype=f32, device=xh.device)
     dec = torch.empty((b, c, h), dtype=f32, device=xh.device)
+    cum = torch.empty((b, c, q, h), dtype=f32, device=xh.device)
     _launch("ssd_intra_fwd", xh.dtype, n, p,
-            [t.data_ptr() for t in (xh, bm, cm, cum, dt, y, s, dec)],
+            [t.data_ptr() for t in (xh, bm, cm, log_a, dt, y, s, dec, cum)],
             b * c, q, h, xh.device)
-    return y, s, dec
+    return y, s, dec, cum
 
 
 def ssd_inter_cuda(cm: torch.Tensor, cum: torch.Tensor, h_prevs: torch.Tensor,

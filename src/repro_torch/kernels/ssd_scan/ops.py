@@ -1,5 +1,6 @@
-"""Public SSD scan: intra-chunk pass -> chunk recurrence -> inter-chunk
-pass (counterpart of ``repro.kernels.ssd_scan.ops``)."""
+"""Public SSD scan: intra-chunk pass (which also takes the chunk cumsum)
+-> chunk recurrence -> inter-chunk pass (counterpart of
+``repro.kernels.ssd_scan.ops``)."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -15,13 +16,16 @@ intra_launches = 0
 inter_launches = 0
 
 
-def ssd_intra(xh, bm, cm, cum, dt):
-    """The intra-chunk pass: the CUDA kernel for a CUDA tensor (or the
-    call raises), the plain version for a CPU tensor."""
+def ssd_intra(xh, bm, cm, log_a, dt):
+    """The intra-chunk pass with the chunk cumsum folded in: returns
+    (y_intra, S, chunk decay, cum). The CUDA kernel for a CUDA tensor (or
+    the call raises); for a CPU tensor, ``torch.cumsum`` and the plain
+    version, which takes ``cum`` as the Pallas kernel does."""
     global intra_launches
     if xh.device.type == "cpu":
-        return ssd_intra_ref(xh, bm, cm, cum, dt)
-    out = ssd_intra_cuda(xh, bm, cm, cum, dt)
+        cum = torch.cumsum(log_a, dim=2)
+        return (*ssd_intra_ref(xh, bm, cm, cum, dt), cum)
+    out = ssd_intra_cuda(xh, bm, cm, log_a, dt)
     intra_launches += 1
     return out
 
@@ -58,9 +62,8 @@ def ssd_scan(xh: torch.Tensor, b_mat: torch.Tensor, c_mat: torch.Tensor,
     cc = c_mat.reshape(bsz, c, q, n)
     la = log_a.reshape(bsz, c, q, h).float()
     dc = dt.reshape(bsz, c, q, h).float()
-    cum = torch.cumsum(la, dim=2)                               # (b,c,q,h)
 
-    y_intra, s_chunk, chunk_decay = ssd_intra(xc, bc, cc, cum, dc)
+    y_intra, s_chunk, chunk_decay, cum = ssd_intra(xc, bc, cc, la, dc)
 
     h_prevs, h_last = chunk_recurrence(s_chunk, chunk_decay, h0)
     y = ssd_inter(cc, cum, h_prevs, y_intra, xh.dtype)

@@ -22,6 +22,8 @@ TOL = {torch.float32: dict(atol=2e-5, rtol=2e-4),
        torch.bfloat16: dict(atol=6e-2, rtol=6e-2)}
 #: SSM states (tests/test_kernels.py::test_ssd_scan_sweep)
 STATE_TOL = dict(atol=1e-3, rtol=1e-2)
+#: the chunk cumsum against torch.cumsum
+CUM_TOL = dict(atol=1e-5, rtol=0)
 
 
 @pytest.fixture
@@ -66,6 +68,35 @@ def test_flash_kernel_takes_strided_views(cuda):
     ref = attention_ref(q, k, v)
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
                                **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("s", [1, 37, 64, 1000])
+@pytest.mark.parametrize("h,hkv", [(16, 8), (16, 1), (32, 32)])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_bf16_kernel_takes_strided_views(cuda, s, h, hkv, d):
+    """The tensor-core route on q/k/v sliced out of one fused projection,
+    ragged lengths and GQA, MQA and MHA head counts."""
+    rng = np.random.default_rng(5)
+    qkv = _normal(rng, (2, s, h + 2 * hkv, d), torch.bfloat16, cuda)
+    q, k, v = qkv[:, :, :h], qkv[:, :, h:h + hkv], qkv[:, :, h + hkv:]
+    before = flash_ops.launches
+    out = flash_ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_ops.launches == before + 1 and out.dtype == torch.bfloat16
+    _close(out, attention_ref(q, k, v), TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("cut", ["start", "head_stride"])
+def test_flash_bf16_kernel_rejects_misaligned_rows(cuda, cut):
+    """A row that does not start on a 16-byte boundary raises; the wrapper
+    never copies it into place."""
+    width = 72 if cut == "start" else 68
+    base = torch.zeros((1, 64, 4, width), dtype=torch.bfloat16, device=cuda)
+    q = base[..., 4:68] if cut == "start" else base[..., :64]
+    before = flash_ops.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_ops.flash_attention(q, q, q)
+    assert flash_ops.launches == before
 
 
 def test_flash_kernel_rejects_unsupported_head_dim(cuda):
@@ -115,21 +146,33 @@ SSD_SHAPES = [(2, 128, 4, 32, 16, 32), (1, 256, 8, 64, 64, 128),
               (1, 77, 64, 64, 64, 128)]
 
 
+def _chunked(xh, bm, cm, log_a, dt, chunk):
+    b, s, h, p = xh.shape
+    n = bm.shape[-1]
+    q = min(chunk, s)
+    c = s // q
+    return (xh.reshape(b, c, q, h, p), bm.reshape(b, c, q, n),
+            cm.reshape(b, c, q, n), log_a.reshape(b, c, q, h),
+            dt.reshape(b, c, q, h))
+
+
 @pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_passes_match_plain(cuda, b, s, h, p, n, chunk, dtype):
+    """Both passes against their plain versions. ``log_a`` lies on the
+    2^-10 grid, where every cumsum is exact, so the intra outputs are
+    compared on the pass's own arithmetic whatever the summation order."""
     rng = np.random.default_rng(3)
     xh, bm, cm, log_a, dt = _scan_inputs(rng, b, s, h, p, n, dtype, cuda)
-    q = min(chunk, s)
-    c = s // q
-    xc = xh.reshape(b, c, q, h, p)
-    bc, cc = (t.reshape(b, c, q, n) for t in (bm, cm))
-    dc = dt.reshape(b, c, q, h)
-    cum = torch.cumsum(log_a.reshape(b, c, q, h), dim=2)
+    log_a = torch.round(log_a * 1024) / 1024
+    xc, bc, cc, la, dc = _chunked(xh, bm, cm, log_a, dt, chunk)
+    c, q = xc.shape[1:3]
+    cum = torch.cumsum(la, dim=2)
     before = ssd_ops.intra_launches
-    got = ssd_ops.ssd_intra(xc, bc, cc, cum, dc)
+    got = ssd_ops.ssd_intra(xc, bc, cc, la, dc)
     torch.cuda.synchronize()
     assert ssd_ops.intra_launches == before + 1
+    _close(got[3], cum, CUM_TOL)
     want = ssd_intra_ref(xc, bc, cc, cum, dc)
     for g, w, tol in zip(got, want, (TOL[torch.float32], STATE_TOL,
                                      TOL[torch.float32])):
@@ -140,6 +183,17 @@ def test_ssd_passes_match_plain(cuda, b, s, h, p, n, chunk, dtype):
     torch.cuda.synchronize()
     assert ssd_ops.inter_launches == before + 1 and y.dtype == dtype
     _close(y, ssd_inter_ref(cc, cum, hprev, got[0], dtype), TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_intra_cum_matches_torch_cumsum(cuda, dtype):
+    """Unquantised ``log_a``: the kernel sums each chunk in index order in
+    fp32, as torch.cumsum does along a non-innermost axis."""
+    xh, bm, cm, log_a, dt = _scan_inputs(np.random.default_rng(6), 2, 512,
+                                         64, 64, 64, dtype, cuda)
+    xc, bc, cc, la, dc = _chunked(xh, bm, cm, log_a, dt, 128)
+    _close(ssd_ops.ssd_intra(xc, bc, cc, la, dc)[3],
+           torch.cumsum(la, dim=2), CUM_TOL)
 
 
 @pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_SHAPES)
@@ -159,6 +213,23 @@ def test_ssd_scan_matches_plain(cuda, b, s, h, p, n, chunk, dtype):
     assert y.dtype == dtype and hf.dtype == torch.float32
     _close(y, yr, TOL[dtype])
     _close(hf, hr, STATE_TOL)
+
+
+@pytest.mark.parametrize("name", ["xh", "bm", "cm"])
+def test_ssd_bf16_intra_rejects_misaligned_input(cuda, name):
+    """A contiguous bf16 input that starts 8 bytes off a 16-byte boundary
+    raises; the wrapper never copies it into place."""
+    shapes = dict(xh=(1, 1, 64, 4, 32), bm=(1, 1, 64, 16), cm=(1, 1, 64, 16))
+    ins = {k: torch.zeros(v, dtype=torch.bfloat16, device=cuda)
+           for k, v in shapes.items()}
+    n = ins[name].numel()
+    ins[name] = torch.zeros(n + 4, dtype=torch.bfloat16,
+                            device=cuda)[4:].view(shapes[name])
+    la = torch.zeros((1, 1, 64, 4), device=cuda)
+    before = ssd_ops.intra_launches
+    with pytest.raises(ValueError, match="16-byte"):
+        ssd_ops.ssd_intra(ins["xh"], ins["bm"], ins["cm"], la, la)
+    assert ssd_ops.intra_launches == before
 
 
 @pytest.mark.parametrize("b,c,q,h,p,n", [(1, 1, 256, 4, 64, 64),

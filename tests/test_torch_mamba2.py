@@ -119,6 +119,30 @@ def test_ssd_passes_match_pallas_bodies(b, s, h, p, n, chunk, dtype):
     _close(got_y, want_y, TOL[dtype])
 
 
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SWEEP)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_intra_op_folds_the_cumsum(b, s, h, p, n, chunk, dtype):
+    """``ops.ssd_intra`` takes ``log_a`` and returns the Pallas kernel's
+    three outputs on ``jnp.cumsum(log_a)`` plus that cumsum."""
+    rng = np.random.default_rng(7)
+    xh, bm, cm, log_a, dt = _scan_inputs(rng, b, s, h, p, n)
+    c, q = s // chunk, chunk
+    (txh, jxh), (tbm, jbm), (tcm, jcm) = (
+        _both(a.reshape(b, c, q, *a.shape[2:]), dtype) for a in (xh, bm, cm))
+    (tla, jla), (tdt, jdt) = (_both(a.reshape(b, c, q, h), "float32")
+                              for a in (log_a, dt))
+    jcum = jnp.cumsum(jla, axis=2)
+    want = jax_ssd_intra(jxh, jbm, jcm, jcum, jdt, interpret=True)
+    before = ssd_ops.intra_launches
+    got = ssd_ops.ssd_intra(txh, tbm, tcm, tla, tdt)
+    assert ssd_ops.intra_launches == before      # no kernel on the CPU
+    assert len(got) == 4 and all(g.dtype == torch.float32 for g in got)
+    for g, w, tol in zip(got, (*want, jcum), (TOL["float32"], STATE_TOL,
+                                              TOL["float32"],
+                                              TOL["float32"])):
+        _close(g, w, tol)
+
+
 def test_ssd_chunked_ref_matches_naive_recurrence():
     """tests/test_kernels.py::test_ssd_chunked_ref_matches_naive_recurrence
     on the port's own oracles."""
