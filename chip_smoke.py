@@ -10,8 +10,9 @@ Phases, in order; any failure exits non-zero:
      paths' shapes and timed beside its plain version, one PyTorch
      library call (where one computes the same function) and its bound:
      flash attention (bf16 tensor-core and fp32 scalar routes), the
-     fused RMSNorm, the two SSD-scan passes (the intra pass, which also
-     takes the chunk cumsum, on both routes) and the composed SSD scan;
+     fused RMSNorm, the two SSD-scan passes on both routes (the intra
+     pass, which also takes the chunk cumsum, and the inter pass, which
+     also runs the chunk recurrence) and the composed SSD scan;
   3. reduced qwen3-0.6b and reduced zamba2-1.2b in fp32, the kernel
      paths against the plain ones;
   4. the main paths, each with the launch counts set to 0 just before
@@ -21,9 +22,10 @@ Phases, in order; any failure exits non-zero:
      bf16 serving 8 requests (every Mamba2 prefill through the two SSD
      kernels, the shared attention block through flash attention), then
      one full-width zamba2 forward, the reference's own kernel route;
-  5. host wall time against device-busy time (torch.profiler) for one
-     decode step and one prefill of each served model, and no torch
-     cumsum kernel left in the zamba2 prefill;
+  5. host wall time against device-busy time and kernel launches per
+     call (torch.profiler) for one decode step and one prefill of each
+     served model, and neither torch's cumsum nor the chunk recurrence's
+     stack left in the zamba2 prefill;
   6. one JSON line of per-kernel numbers and, last, the device line.
 """
 from __future__ import annotations
@@ -51,8 +53,9 @@ from repro_torch.kernels.rmsnorm.kernel import fused_rmsnorm_cuda
 from repro_torch.kernels.rmsnorm.ref import fused_rmsnorm_ref
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.kernel import ssd_inter_cuda, ssd_intra_cuda
-from repro_torch.kernels.ssd_scan.ref import (ssd_inter_ref, ssd_intra_ref,
-                                              ssd_scan_ref)
+from repro_torch.kernels.ssd_scan.ref import (ssd_inter_scan_ref,
+                                              ssd_intra_ref, ssd_scan_ref)
+from repro_torch.models.mamba2 import chunk_recurrence
 from repro_torch.models.model import Model
 from repro_torch.serving import RequestQueue, ServeEngine
 
@@ -70,12 +73,15 @@ MODEL_TOL = dict(atol=2e-4, rtol=2e-3)
 SERVE_TOL = dict(atol=2e-3, rtol=2e-2)
 #: the chunk cumsum against torch.cumsum (tests/test_torch_cuda.py)
 CUM_TOL = dict(atol=1e-5, rtol=0)
-#: each kernel's device time (ms) at its main-path shape before flash
-#: attention and the SSD intra pass ran on tensor cores, on an H100 80GB
-#: HBM3 at 700 W: constants copied from PERF.md's kernel table, printed for
-#: comparison and kept out of the measured kernels line
+#: calls each torch.profiler window of phase 5 covers
+PROFILE_CALLS = 5
+#: each kernel's earlier device time (ms) at its main-path shape, on an
+#: H100 80GB HBM3 at 700 W: flash attention and the SSD passes before
+#: their redesigns (the inter pass without the chunk recurrence), RMSNorm
+#: as first measured. Constants copied from PERF.md's kernel table,
+#: printed for comparison and kept out of the measured kernels line
 PREV_MS = {"flash_attention": 0.13056, "fused_rmsnorm": 0.00514,
-           "ssd_intra": 0.07731, "ssd_inter": 0.01629}
+           "ssd_intra": 0.07731, "ssd_inter": 0.01626}
 
 
 def check(ok: bool, what: str) -> None:
@@ -179,7 +185,9 @@ def check_ssd(gen, b, s, h, p, n, chunk, dtype):
     against the chunked model path, on test_ssd_scan_sweep's input
     distributions. The intra pass takes ``log_a`` on the 2^-10 grid, where
     every cumsum is exact, so its outputs are compared on its own
-    arithmetic; the composed scan takes the unquantised ``log_a``. Returns
+    arithmetic; the composed scan takes the unquantised ``log_a``. The
+    inter pass runs the chunk recurrence from zeros and from a random h0:
+    its last state must equal ``chunk_recurrence``'s bit for bit. Returns
     one timed row per pass."""
     xh = randn(gen, (b, s, h, p), dtype)
     bm, cm = (randn(gen, (b, s, n), dtype) for _ in range(2))
@@ -203,12 +211,20 @@ def check_ssd(gen, b, s, h, p, n, chunk, dtype):
                         (TOL[torch.float32], STATE_TOL, TOL[torch.float32],
                          CUM_TOL),
                         ("y_intra", "S", "decay", "cum")))
-    hprev = randn(gen, (b, c, h, n, p), torch.float32)
-    y_intra = got[0]
-    y = ssd_inter_cuda(cc, cum, hprev, y_intra, dtype)
-    torch.cuda.synchronize()
-    err_inter = max_err(y, ssd_inter_ref(cc, cum, hprev, y_intra, dtype),
-                        **TOL[dtype], what=f"ssd_inter {shape}")
+    y_intra, s_chunk, dec, cum_out = got
+    err_inter = 0.0
+    for h0 in (None, randn(gen, (b, h, n, p), torch.float32)):
+        y, h_last = ssd_inter_cuda(cc, cum_out, s_chunk, dec, y_intra, dtype,
+                                   h0)
+        torch.cuda.synchronize()
+        case = f"{shape} h0={'random' if h0 is not None else 'zeros'}"
+        want_y, want_h = ssd_inter_scan_ref(cc, cum_out, s_chunk, dec,
+                                            y_intra, dtype, h0)
+        err_inter = max(err_inter, max_err(y, want_y, **TOL[dtype],
+                                           what=f"ssd_inter y {case}"))
+        check(torch.equal(h_last, chunk_recurrence(s_chunk, dec, h0)[1]),
+              f"ssd_inter last state equals chunk_recurrence's bit for bit "
+              f"{case}")
     ys, hs = ssd_ops.ssd_scan(xh, bm, cm, log_a, dt, chunk=chunk)
     torch.cuda.synchronize()
     # the chunked path on the inputs cast to fp32, the arithmetic of the
@@ -219,35 +235,39 @@ def check_ssd(gen, b, s, h, p, n, chunk, dtype):
     max_err(hs, hr, **STATE_TOL, what=f"ssd_scan final state {shape}")
 
     # bounds: the work these inputs need (the cumsum; the lower triangle
-    # of M, once per head; C B^T once per chunk) and each input read,
-    # output written once. The intra pass is bound on the unit its route
-    # runs on: the bf16 tensor cores or the fp32 units outside them; the
-    # inter pass runs on the fp32 units.
+    # of M, once per head; C B^T once per chunk; C h and the recurrence
+    # per chunk and head) and each input read, output written once (the
+    # inter pass from zeros: no h0 read). Each pass is bound on the unit
+    # its route runs on: the bf16 tensor cores or the fp32 units outside
+    # them.
     tri = q * (q + 1) / 2
     nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
     intra_flops = b * c * (2 * n * tri + h * (q + 3 * tri + 2 * p * tri
                                               + 2 * q * n * p + q * p))
-    inter_flops = b * c * h * (2 * q * n * p + 2 * q * p)
+    inter_flops = b * c * h * (2 * q * n * p + 2 * q * p + 2 * n * p)
     intra_bytes = nbytes(xc, bc, cc, la, dc, *got)
     intra_bound = bound(intra_flops, intra_bytes, dtype)
-    inter_bound = bound(inter_flops, nbytes(cc, cum, hprev, y_intra, y),
-                        torch.float32)
-    cum_out = got[3]
+    y, h_last = ssd_inter_cuda(cc, cum_out, s_chunk, dec, y_intra, dtype)
+    inter_bound = bound(inter_flops, nbytes(cc, cum_out, s_chunk, dec,
+                                            y_intra, y, h_last), dtype)
+    route = "mma.sync bf16" if dtype == torch.bfloat16 else "scalar fp32"
     rows = []
     for err, (ms_bound, bound_by), kernel, plain in (
             (err_intra, intra_bound,
              lambda: ssd_intra_cuda(xc, bc, cc, la, dc),
              lambda: ssd_intra_ref(xc, bc, cc, torch.cumsum(la, dim=2), dc)),
             (err_inter, inter_bound,
-             lambda: ssd_inter_cuda(cc, cum_out, hprev, y_intra, dtype),
-             lambda: ssd_inter_ref(cc, cum_out, hprev, y_intra, dtype))):
-        rows.append(dict(shape=shape, max_abs_err=err, ms=time_ms(kernel),
-                         plain_ms=time_ms(plain), library_ms=None,
-                         bound_ms=ms_bound, bound_by=bound_by))
-    rows[0].update(
-        route=("mma.sync bf16" if dtype == torch.bfloat16
-               else "scalar fp32"),
-        cumsum_ms=time_ms(lambda: torch.cumsum(la, dim=2)))
+             lambda: ssd_inter_cuda(cc, cum_out, s_chunk, dec, y_intra,
+                                    dtype),
+             lambda: ssd_inter_scan_ref(cc, cum_out, s_chunk, dec, y_intra,
+                                        dtype))):
+        rows.append(dict(shape=shape, route=route, max_abs_err=err,
+                         ms=time_ms(kernel), plain_ms=time_ms(plain),
+                         library_ms=None, bound_ms=ms_bound,
+                         bound_by=bound_by))
+    rows[0]["cumsum_ms"] = time_ms(lambda: torch.cumsum(la, dim=2))
+    rows[1]["recurrence_ms"] = time_ms(
+        lambda: chunk_recurrence(s_chunk, dec, None))
     return rows
 
 
@@ -258,6 +278,9 @@ def print_rows(name, rows):
         extra = ""
         if "cumsum_ms" in row:
             extra = f" [torch.cumsum alone {row['cumsum_ms']:.5f} ms]"
+        if "recurrence_ms" in row:
+            extra = (f" [the torch chunk recurrence alone "
+                     f"{row['recurrence_ms']:.5f} ms]")
         route = f" ({row['route']})" if "route" in row else ""
         print(f"  {name}{route} {row['shape']}: kernel {row['ms']:.5f} ms, "
               f"plain {row['plain_ms']:.5f} ms, library {lib}, bound "
@@ -419,12 +442,14 @@ def print_serving(name, engine, results, lengths, wall, launches):
           f"{n_tokens / busy:.1f} tokens/s; launches {launches}")
 
 
-def where_time_goes(model, params, engine, kernels, n: int = 5):
+def where_time_goes(model, params, engine, kernels,
+                    n: int = PROFILE_CALLS):
     """Host wall time against device-busy time (the sum of the kernels'
     times in a torch.profiler trace) for one decode step of the 4-slot
     batch and one 512-token prefill, warm, as the main path runs them;
     ``kernels`` names the port's kernels by a substring of their names.
-    Returns {call: its kernel rows, longest first}."""
+    Returns {call: (its kernel rows, longest first, kernel launches per
+    call)}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     prompt = torch.randint(0, model.cfg.vocab, (1, 512), device="cuda")
@@ -451,7 +476,8 @@ def where_time_goes(model, params, engine, kernels, n: int = 5):
         rows = sorted((r for r in prof.key_averages()
                        if r.device_type == DeviceType.CUDA),
                       key=lambda r: -r.self_device_time_total)
-        traces[name] = rows
+        launches = sum(r.count for r in rows) // n
+        traces[name] = rows, launches
         device_ms = sum(r.self_device_time_total for r in rows) / n / 1e3
         if device_ms == 0.0:
             print(f"  {name}: wall {wall_ms:.3f} ms; device time not "
@@ -463,7 +489,8 @@ def where_time_goes(model, params, engine, kernels, n: int = 5):
                            for kname, key in kernels.items())
         print(f"  {name}: wall {wall_ms:.3f} ms, device busy "
               f"{device_ms:.3f} ms (idle share "
-              f"{1 - device_ms / wall_ms:.3f}), {shares}; top kernels:")
+              f"{1 - device_ms / wall_ms:.3f}), {launches} kernel launches "
+              f"per call, {shares}; top kernels:")
         for r in rows[:6]:
             print(f"    {r.self_device_time_total / n / 1e3:.3f} ms "
                   f"x{r.count // n} {r.key[:90]}")
@@ -569,14 +596,27 @@ def main() -> int:
                               "ssd_inter": "ssd_inter",
                               "flash attention": "flash_fwd"})
     # the chunk cumsum is folded into the intra pass: torch's scan kernel
-    # (tensor_kernel_scan_outer_dim) must not appear in the prefill
-    prefill_rows = traces.get("prefill, 512 tokens", [])
+    # (tensor_kernel_scan_outer_dim) must not appear in the prefill. The
+    # chunk recurrence is folded into the inter pass: the torch loop's
+    # stack of the states (a CatArrayBatchedCopy kernel, once per Mamba2
+    # layer) must not appear either; the model's own cats (rope in the 6
+    # shared-block applications, the cache stacks) launch fewer times
+    prefill_rows, prefill_launches = traces.get("prefill, 512 tokens",
+                                                ([], 0))
     check(bool(prefill_rows), "the profiler saw the zamba2 prefill's kernels")
     scans = [r.key for r in prefill_rows
              if "cumsum" in r.key.lower() or "scan_outer_dim" in r.key]
     check(not scans, f"no cumsum kernel in the zamba2 prefill, got {scans}")
-    print(f"  no cumsum kernel among the zamba2 prefill's "
-          f"{len(prefill_rows)} kernel rows")
+    cats = [(r.count // PROFILE_CALLS, r.key) for r in prefill_rows
+            if "CatArray" in r.key]
+    per_layer = [key for count, key in cats if count >= model.cfg.n_layers]
+    check(not per_layer, f"no cat kernel once per Mamba2 layer (the chunk "
+                         f"recurrence's stack) in the zamba2 prefill, got "
+                         f"{per_layer}")
+    print(f"  no cumsum kernel and no recurrence stack among the zamba2 "
+          f"prefill's {len(prefill_rows)} kernel rows ({prefill_launches} "
+          f"launches per call); cat kernel launches per call: "
+          f"{sorted(count for count, _ in cats)}")
 
     kernels = [
         dict(name="flash_attention", route="cuda mma.sync bf16 + scalar fp32",
@@ -595,7 +635,9 @@ def main() -> int:
              source="src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan/kernel.py:91",
              launches=hybrid_launches["ssd_intra"]),
-        dict(name="ssd_inter", route="cuda",
+        dict(name="ssd_inter",
+             route="cuda mma.sync bf16 + scalar fp32, chunk recurrence "
+                   "folded in",
              source="src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan/kernel.py:117",
              launches=hybrid_launches["ssd_inter"]),
@@ -610,11 +652,13 @@ def main() -> int:
     for entry, row in zip(kernels, main_rows):
         entry.update({k: row[k] for k in keys})
         print(f"  {entry['name']}: {row['ms']:.5f} ms at its main shape, "
-              f"{PREV_MS[entry['name']]:.5f} ms before the tensor-core "
-              f"routes (constant from PERF.md, not measured here)")
+              f"{PREV_MS[entry['name']]:.5f} ms earlier (constant from "
+              f"PERF.md, not measured here)")
     kernels[0]["fp32"] = {k: flash_f32[0][k] for k in keys}
     kernels[2]["fp32"] = {k: ssd_rows[1][0][k] for k in keys}
     kernels[2]["cumsum_ms"] = ssd_rows[0][0]["cumsum_ms"]
+    kernels[3]["fp32"] = {k: ssd_rows[1][1][k] for k in keys}
+    kernels[3]["recurrence_ms"] = ssd_rows[0][1]["recurrence_ms"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

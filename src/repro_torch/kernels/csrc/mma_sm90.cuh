@@ -1,6 +1,6 @@
-// PTX wrappers shared by the port's tensor-core kernels (sm_90a): 16-byte
-// cp.async into shared memory, ldmatrix, and mma.sync m16n8k16 with bf16
-// operands and fp32 accumulators.
+// PTX wrappers shared by the port's tensor-core kernels (sm_90a): 16- and
+// 4-byte cp.async into shared memory, ldmatrix, and mma.sync m16n8k16 with
+// bf16 operands and fp32 accumulators.
 //
 // Fragment layout of mma.sync m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, 4 registers of bf16 pairs): a0 (g, 2t..2t+1),
@@ -26,6 +26,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(live ? 16 : 0));
+}
+// 4 bytes global -> shared (through L1); 4 zero bytes when !live
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool live) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(live ? 4 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");

@@ -1,5 +1,5 @@
-// Mamba2 SSD chunked scan, the two passes around the chunk recurrence, for
-// Hopper (sm_90a).
+// Mamba2 SSD chunked scan for Hopper (sm_90a): the intra-chunk pass, and
+// the inter-chunk pass with the chunk recurrence folded into it.
 //
 // The intra pass replaces the TPU Pallas kernel ssd_intra
 // (repro/kernels/ssd_scan/kernel.py, body _intra_kernel) and the chunk
@@ -10,18 +10,25 @@
 //   y[i, :]  = sum_j M[i, j] x_j
 //   S[n, p]  = sum_j B_j[n] (x_j[p] * exp(cum_last - cum_j) * dt_j)
 //   dec      = exp(cum_last)
-// and writes cum as a fourth output for the inter pass and the chunk
-// recurrence. The sequential fp32 sum is the one torch.cumsum takes along
-// a non-innermost axis on the card, so cum equals it bit for bit.
-// The inter pass replaces ssd_inter (body _inter_kernel):
-//   y[i, :]  = y_intra[i, :] + (C_i . h_prev) * exp(cum_i), cast to the
-//   output type.
-// The chunk recurrence h_c = h_{c-1} dec_c + S_c between them stays in
-// torch, as the reference keeps it in a lax.scan outside any kernel.
+// and writes cum as a fourth output for the inter pass. The sequential
+// fp32 sum is the one torch.cumsum takes along a non-innermost axis on the
+// card, so cum equals it bit for bit.
+// The inter pass replaces ssd_inter (body _inter_kernel) and the host
+// lax.scan that ops.py runs between the two Pallas kernels. For one
+// (batch, head, 32-column slice of head_dim) it walks the chunks in order
+// from h = h0 (or zeros), keeping h on chip:
+//   y_c[i, :] = y_intra_c[i, :] + (C_i . h) * exp(cum_i), cast to the
+//               output type;
+//   h         = h * dec_c + S_c, a rounded fp32 multiply, then a rounded
+//               add (no fused multiply-add), the arithmetic of the torch
+//               loop models/mamba2.py::chunk_recurrence, so every state
+//               and the returned last one equal that loop's bit for bit.
+// The states entering each chunk never reach device memory.
 //
 // Layout (contiguous, the reference's): xh (b, c, q, h, p); bm/cm
 // (b, c, q, n) in the model type; log_a/dt/cum (b, c, q, h) fp32; y_intra
-// (b, c, q, h, p), S and h_prev (b, c, h, n, p), dec (b, c, h) fp32.
+// (b, c, q, h, p), S (b, c, h, n, p), dec (b, c, h), h0/h_last (b, h, n, p)
+// fp32.
 //
 // The TPU block held a whole (batch, chunk): its (q, q, h) decay tensor is
 // 4 MB at q = 128, h = 64, far above the 227 KB of shared memory a block
@@ -53,14 +60,32 @@
 // stages x, B, C, cum, dt and the (q x q) weight matrix as fp32 (167 KB,
 // one block per SM) and runs 4 x 4 register tiles on 64-row groups.
 //
-// What bounds it on the H100: at b = 1, s = 512, q = 128, h = 64,
-// n = p = 64 the intra pass needs ~0.56 GFLOP against ~17 MB moved. On
+// Inter (ssd_inter_scan), both types: a block walks its chunks with a
+// two-stage cp.async ring, so chunk c + 1's C, y_intra, S, cum and dec
+// tiles (40 KB in bf16 at full width) fly while chunk c computes. The
+// state slice h[:, 32 columns] (8 KB) stays in shared memory. bf16: C . h
+// on mma.sync with C the exact bf16 A operand and h in two bf16 parts
+// (hi, lo: ~16 bits, error ~1e-5 of |C| |h|, far below the bf16 rounding
+// of y), split once per chunk when h is updated; y goes out through a
+// per-warp bf16 tile as 16-byte stores. fp32: C . h on scalar fp32 FMAs
+// (4 x 4 register tiles), y as 16-byte stores.
+//
+// What bounds them on the H100, at b = 1, s = 512, q = 128, h = 64,
+// n = p = 64: the intra pass needs ~0.56 GFLOP against ~17 MB moved. On
 // the bf16 tensor cores (989 TFLOP/s) the operations take ~0.6 us and the
 // bytes ~5 us: the bf16 route is bound by the bytes. At the fp32 peak
 // outside the tensor cores (67 TFLOP/s) the operations take ~8 us: the
-// fp32 route is bound by the operations. The inter pass (not redesigned:
-// scalar, C and h_prev[h] in 50 KB of shared memory) does ~0.27 GFLOP on
-// ~17 MB and is bound by the bytes (~5 us).
+// fp32 route is bound by the operations. The inter pass moves 18 MB
+// (y_intra 8 MB and S 4 MB in, y 4 MB and h_last 1 MB out) for ~0.27
+// GFLOP: bound by the bytes (~5.4 us) on either route. b h (p / 32) = 128
+// blocks walk 4 chunks each; the ring keeps the next chunk's loads in
+// flight behind this chunk's compute. On an H100 SXM at 700 W the bf16
+// route takes ~11 us, twice the bound, and ~2.3 us more for each chunk a
+// block walks past the second (1, 2, 4, 8 chunks at h = 64: ~5.2, 6.7,
+// 11.1, 20.5 us; scripts/ssd_inter_variants.py). A third ring stage
+// gained 1%, a fourth lost 7%; 16-column tiles (256 blocks, C read twice
+// as often) lost 23% and 64-column ones (64 blocks) 41%. So each block's
+// walk through its chunks, not the depth of the ring, sets the time.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,16 +99,6 @@ using namespace mma_sm90;
 constexpr int NT = 256;    // threads per block, a 16 x 16 grid (scalar)
 constexpr int TILE = 64;   // rows of a register-tiled group, 4 per thread
 constexpr int Q_MAX = 128; // longest chunk
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ bf16 from_f32<bf16>(float x) {
-  return __float2bfloat16(x);
-}
 
 __host__ __device__ __forceinline__ int pad_rows(int q) {
   return (q + TILE - 1) / TILE * TILE;
@@ -530,81 +545,271 @@ ssd_intra_f32(const float* __restrict__ xh, const float* __restrict__ bm,
 }
 
 // ---------------------------------------------------------------------------
-// inter: scalar FMAs, both types
+// inter with the chunk recurrence: bf16 on mma.sync, fp32 on scalar FMAs
 // ---------------------------------------------------------------------------
 
-template <int N, int P>
-size_t inter_smem_bytes(int q) {
-  const int qp = pad_rows(q);
-  // C, h_prev, exp(cum)
-  return sizeof(float) * ((size_t)qp * (N + 1) + N * (P + 1) + qp);
-}
+constexpr int INT_NT = 256;  // threads per block: 8 warps
+// bf16 parts of the fp32 state h in C . h: two keep ~16 bits
+constexpr int H_PARTS = 2;
 
+// Shared-memory layout of one inter block: a ring of STAGES chunk tiles,
+// then the state and (bf16 route) its parts and the y tile. Every row
+// pitch is a multiple of 16 bytes and staggers the rows across banks.
 template <typename T, int N, int P>
-__global__ void __launch_bounds__(NT)
-ssd_inter(const T* __restrict__ cm, const float* __restrict__ cum,
-          const float* __restrict__ hprev, const float* __restrict__ y_intra,
-          T* __restrict__ y, int q, int h) {
-  static_assert(P % 16 == 0, "head_dim must be a multiple of 16");
-  constexpr int LDN = N + 1, LDP = P + 1;
-  constexpr int PC = P / 16;
-  extern __shared__ float smem[];
-  const int qp = pad_rows(q);
-  float* sC = smem;            // qp x LDN
-  float* sH = sC + qp * LDN;   // N x LDP
-  float* sE = sH + N * LDP;    // qp: exp(cum_i)
+struct Inter {
+  static constexpr bool MMA = sizeof(T) == 2;        // the bf16 route
+  static constexpr int STAGES = 2;                   // chunks in the ring
+  static constexpr int PT = P < 32 ? P : 32;         // head_dim per block
+  static constexpr int NP = MMA && N < 16 ? 16 : N;  // n padded to mma depth
+  static constexpr int LDC = MMA ? NP + 8 : N + 4;   // C rows (elements)
+  static constexpr int LDY = PT + 8;                 // y_intra rows (fp32)
+  static constexpr int LDS = PT + 4;                 // S and h rows (fp32)
+  static constexpr int LDB = PT + 8;                 // h parts, y rows (bf16)
+  static constexpr int C_OFF = 0;
+  static constexpr int Y_OFF = C_OFF + Q_MAX * LDC * (int)sizeof(T);
+  static constexpr int S_OFF = Y_OFF + Q_MAX * LDY * 4;
+  static constexpr int CUM_OFF = S_OFF + N * LDS * 4;
+  static constexpr int DEC_OFF = CUM_OFF + Q_MAX * 4;
+  static constexpr int STAGE = DEC_OFF + 16;
+  static constexpr int H_OFF = STAGES * STAGE;
+  static constexpr int HB_OFF = H_OFF + NP * LDS * 4;
+  static constexpr int OUT_OFF = HB_OFF + (MMA ? H_PARTS * NP * LDB * 2 : 0);
+  static constexpr int SMEM = OUT_OFF + (MMA ? Q_MAX * LDB * 2 : 0);
+};
 
+// Start the copies of chunk ck's tiles (ck = batch * chunks + chunk) into
+// one stage: C (rows [0, rows), zero past q and past n), the block's
+// columns of y_intra and S, cum and dec.
+template <typename T, int N, int P>
+__device__ __forceinline__ void inter_load(
+    unsigned char* stage, const T* cm, const float* cum, const float* s_chunk,
+    const float* dec, const float* y_intra, int64_t ck, int rows, int q, int h,
+    int ih, int p0) {
+  using L = Inter<T, N, P>;
   const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int ih = blockIdx.x;
-  const int64_t bc = blockIdx.y;
+  T* sC = reinterpret_cast<T*>(stage + L::C_OFF);
+  float* sY = reinterpret_cast<float*>(stage + L::Y_OFF);
+  float* sS = reinterpret_cast<float*>(stage + L::S_OFF);
+  float* sCum = reinterpret_cast<float*>(stage + L::CUM_OFF);
+  constexpr int EP = 16 / sizeof(T);             // elements per 16 bytes
+  constexpr int CN = (L::MMA ? L::NP : N) / EP;  // pieces per C row
+  constexpr int YN = L::PT / 4;                  // pieces per y_intra/S row
   const int64_t row_hp = (int64_t)h * P;
 
-  const T* cp = cm + bc * q * N;
-  const float* hp = hprev + (bc * h + ih) * (int64_t)(N * P);
-  const float* cump = cum + bc * q * h + ih;
-  for (int idx = tid; idx < qp * N; idx += NT) {
-    const int r = idx / N, k = idx % N;
-    sC[r * LDN + k] = r < q ? to_f32(cp[r * N + k]) : 0.f;
+  const T* cp = cm + ck * q * N;
+  for (int idx = tid; idx < rows * CN; idx += INT_NT) {
+    const int r = idx / CN, k = idx % CN * EP;
+    const bool live = r < q && k < N;
+    cp_async16(sC + r * L::LDC + k, cp + (live ? r * N + k : 0), live);
   }
-  for (int idx = tid; idx < N * P; idx += NT) {
-    const int r = idx / P, k = idx % P;
-    sH[r * LDP + k] = hp[idx];
+  const float* yp = y_intra + ck * q * row_hp + (int64_t)ih * P + p0;
+  for (int idx = tid; idx < rows * YN; idx += INT_NT) {
+    const int r = idx / YN, k = idx % YN * 4;
+    const bool live = r < q;
+    cp_async16(sY + r * L::LDY + k, yp + (live ? r * row_hp + k : 0), live);
   }
-  for (int r = tid; r < qp; r += NT)
-    sE[r] = r < q ? expf(cump[(int64_t)r * h]) : 0.f;
-  __syncthreads();
+  const float* sp = s_chunk + (ck * h + ih) * (int64_t)(N * P) + p0;
+  for (int idx = tid; idx < N * YN; idx += INT_NT) {
+    const int r = idx / YN, k = idx % YN * 4;
+    cp_async16(sS + r * L::LDS + k, sp + r * P + k, true);
+  }
+  const float* cup = cum + ck * q * h + ih;
+  for (int r = tid; r < rows; r += INT_NT)
+    cp_async4(sCum + r, cup + (r < q ? (int64_t)r * h : 0), r < q);
+  if (tid == 0) cp_async4(stage + L::DEC_OFF, dec + ck * h + ih, true);
+}
 
-  for (int r0 = 0; r0 < qp; r0 += TILE) {
-    float acc[4][PC];
+// h[k, col..col + 1] = v, and on the bf16 route its bf16 parts
+template <typename T, int N, int P>
+__device__ __forceinline__ void put_state(unsigned char* smem, int k, int col,
+                                          float2 v) {
+  using L = Inter<T, N, P>;
+  float* sH = reinterpret_cast<float*>(smem + L::H_OFF);
+  *reinterpret_cast<float2*>(sH + k * L::LDS + col) = v;
+  if constexpr (L::MMA) {
+    uint32_t parts[H_PARTS];
+    split_bf16<H_PARTS>(v.x, v.y, parts);
+    bf16* sHb = reinterpret_cast<bf16*>(smem + L::HB_OFF);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int part = 0; part < H_PARTS; ++part)
+      *reinterpret_cast<uint32_t*>(sHb + (part * L::NP + k) * L::LDB + col) =
+          parts[part];
+  }
+}
+
+// the rows of one chunk's y from a landed stage and the state h
+template <typename T, int N, int P>
+__device__ __forceinline__ void inter_rows(unsigned char* smem,
+                                           const unsigned char* stage, T* yp,
+                                           int64_t row_hp, int q) {
+  using L = Inter<T, N, P>;
+  const T* sC = reinterpret_cast<const T*>(stage + L::C_OFF);
+  const float* sY = reinterpret_cast<const float*>(stage + L::Y_OFF);
+  const float* sCum = reinterpret_cast<const float*>(stage + L::CUM_OFF);
+  const int tid = threadIdx.x;
+  if constexpr (L::MMA) {
+    // warp w: rows [16 w, 16 w + 16) of C . h on mma.sync
+    constexpr int KN = L::NP / 16, NTL = L::PT / 8;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    if (16 * warp >= q) return;
+    const bf16* sHb = reinterpret_cast<const bf16*>(smem + L::HB_OFF);
+    float acc[NTL][4];
 #pragma unroll
-      for (int c = 0; c < PC; ++c) acc[i][c] = 0.f;
-#pragma unroll 8
-    for (int k = 0; k < N; ++k) {
-      float a[4], hv[PC];
+    for (int j = 0; j < NTL; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sC[(r0 + ty + 16 * i) * LDN + k];
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 #pragma unroll
-      for (int c = 0; c < PC; ++c) hv[c] = sH[k * LDP + tx + 16 * c];
+    for (int kd = 0; kd < KN; ++kd) {
+      uint32_t af[4];
+      ldmatrix_x4(af, sC + (16 * warp + (lane & 15)) * L::LDC + kd * 16 +
+                          (lane >> 4) * 8);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int pn = 0; pn < L::PT / 16; ++pn)
 #pragma unroll
-        for (int c = 0; c < PC; ++c) acc[i][c] = fmaf(a[i], hv[c], acc[i][c]);
+        for (int part = 0; part < H_PARTS; ++part) {
+          uint32_t bf[4];
+          ldmatrix_x4_trans(
+              bf, sHb + (part * L::NP + 16 * kd + (lane & 7) +
+                         (((lane >> 3) & 1) << 3)) * L::LDB +
+                      pn * 16 + ((lane >> 4) << 3));
+          mma_bf16(acc[2 * pn], af, bf[0], bf[1]);
+          mma_bf16(acc[2 * pn + 1], af, bf[2], bf[3]);
+        }
     }
+    // y = y_intra + exp(cum_i) (C . h) as bf16 into the warp's rows of the
+    // y tile, then out in 16-byte pieces
+    bf16* sOut = reinterpret_cast<bf16*>(smem + L::OUT_OFF);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = r0 + ty + 16 * i;
-      if (row >= q) continue;
-      const float e = sE[row];
-      const int64_t off = (bc * q + row) * row_hp + (int64_t)ih * P;
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int i = 16 * warp + g + 8 * h2;
+      const float e = expf(sCum[i]);
 #pragma unroll
-      for (int c = 0; c < PC; ++c) {
-        const int col = tx + 16 * c;
-        y[off + col] = from_f32<T>(y_intra[off + col] + acc[i][c] * e);
+      for (int j = 0; j < NTL; ++j) {
+        const int col = 8 * j + 2 * t;
+        const float2 yi =
+            *reinterpret_cast<const float2*>(sY + i * L::LDY + col);
+        *reinterpret_cast<uint32_t*>(sOut + i * L::LDB + col) = pack_bf16(
+            yi.x + acc[j][2 * h2] * e, yi.y + acc[j][2 * h2 + 1] * e);
       }
     }
+    __syncwarp();
+    constexpr int RP = L::PT / 8;  // 16-byte pieces of a y row
+    for (int idx = lane; idx < 16 * RP; idx += 32) {
+      const int i = 16 * warp + idx / RP, k = idx % RP * 8;
+      if (i < q)
+        *reinterpret_cast<uint4*>(yp + i * row_hp + k) =
+            *reinterpret_cast<const uint4*>(sOut + i * L::LDB + k);
+    }
+  } else {
+    // thread (tx, ty): rows ty + TY i, columns [4 tx, 4 tx + 4)
+    constexpr int TX = L::PT / 4, TY = INT_NT / TX, RI = Q_MAX / TY;
+    const int tx = tid % TX, ty = tid / TX;
+    const float* sH = reinterpret_cast<const float*>(smem + L::H_OFF);
+    float acc[RI][4];
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+#pragma unroll 8
+    for (int k = 0; k < N; ++k) {
+      const float4 hv =
+          *reinterpret_cast<const float4*>(sH + k * L::LDS + 4 * tx);
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+        const float a = sC[(ty + TY * i) * L::LDC + k];
+        acc[i][0] = fmaf(a, hv.x, acc[i][0]);
+        acc[i][1] = fmaf(a, hv.y, acc[i][1]);
+        acc[i][2] = fmaf(a, hv.z, acc[i][2]);
+        acc[i][3] = fmaf(a, hv.w, acc[i][3]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      const int r = ty + TY * i;
+      if (r >= q) continue;
+      const float e = expf(sCum[r]);
+      const float4 yi =
+          *reinterpret_cast<const float4*>(sY + r * L::LDY + 4 * tx);
+      *reinterpret_cast<float4*>(yp + r * row_hp + 4 * tx) =
+          make_float4(yi.x + acc[i][0] * e, yi.y + acc[i][1] * e,
+                      yi.z + acc[i][2] * e, yi.w + acc[i][3] * e);
+    }
+  }
+}
+
+// one block per (head_dim slice, head, batch), walking the c chunks in order
+template <typename T, int N, int P>
+__global__ void __launch_bounds__(INT_NT, 1)
+ssd_inter_scan(const T* __restrict__ cm, const float* __restrict__ cum,
+               const float* __restrict__ s_chunk,
+               const float* __restrict__ dec,
+               const float* __restrict__ y_intra,
+               const float* __restrict__ h0, T* __restrict__ y,
+               float* __restrict__ h_last, int c, int q, int h) {
+  using L = Inter<T, N, P>;
+  static_assert(P % 16 == 0 && N % 8 == 0, "unsupported (n, p)");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw;
+  const float* sH = reinterpret_cast<const float*>(smem + L::H_OFF);
+  const int tid = threadIdx.x;
+  const int p0 = blockIdx.x * L::PT, ih = blockIdx.y, bb = blockIdx.z;
+  const int64_t row_hp = (int64_t)h * P;
+  // rows a chunk stages: the mma warps read whole 16-row tiles, the scalar
+  // route every row
+  const int rows = L::MMA ? pad16(q) : Q_MAX;
+  auto load = [&](int st, int ci) {
+    inter_load<T, N, P>(smem + st * L::STAGE, cm, cum, s_chunk, dec, y_intra,
+                        (int64_t)bb * c + ci, rows, q, h, ih, p0);
+  };
+
+  // the first STAGES - 1 chunks in flight, one commit group each
+  for (int ci = 0; ci < L::STAGES - 1; ++ci) {
+    if (ci < c) load(ci, ci);
+    cp_async_commit();
+  }
+
+  // h = h0, or zeros; state rows past n (the mma padding) are zero
+  const int64_t hb = (int64_t)(bb * h + ih) * N * P + p0;
+  for (int idx = tid; idx < L::NP * L::PT / 2; idx += INT_NT) {
+    const int k = idx / (L::PT / 2), col = idx % (L::PT / 2) * 2;
+    float2 v = make_float2(0.f, 0.f);
+    if (h0 != nullptr && k < N)
+      v = make_float2(h0[hb + k * P + col], h0[hb + k * P + col + 1]);
+    put_state<T, N, P>(smem, k, col, v);
+  }
+
+  for (int ci = 0; ci < c; ++ci) {
+    // chunk ci + STAGES - 1 into the stage chunk ci - 1 has freed
+    const int next = ci + L::STAGES - 1;
+    if (next < c) load(next % L::STAGES, next);
+    cp_async_commit();
+    unsigned char* stage = smem + ci % L::STAGES * L::STAGE;
+    cp_async_wait<L::STAGES - 1>();  // chunk ci's copies have landed
+    __syncthreads();
+    inter_rows<T, N, P>(
+        smem, stage,
+        y + ((int64_t)bb * c + ci) * q * row_hp + (int64_t)ih * P + p0,
+        row_hp, q);
+    __syncthreads();  // h is read: now h = h dec + S, rounded twice
+    const float* sS = reinterpret_cast<const float*>(stage + L::S_OFF);
+    const float d = *reinterpret_cast<const float*>(stage + L::DEC_OFF);
+    for (int idx = tid; idx < N * L::PT / 2; idx += INT_NT) {
+      const int k = idx / (L::PT / 2), col = idx % (L::PT / 2) * 2;
+      const float2 hv =
+          *reinterpret_cast<const float2*>(sH + k * L::LDS + col);
+      const float2 sv =
+          *reinterpret_cast<const float2*>(sS + k * L::LDS + col);
+      put_state<T, N, P>(smem, k, col,
+                         make_float2(__fadd_rn(__fmul_rn(hv.x, d), sv.x),
+                                     __fadd_rn(__fmul_rn(hv.y, d), sv.y)));
+    }
+    __syncthreads();  // the stage is free and h is whole
+  }
+
+  for (int idx = tid; idx < N * L::PT / 4; idx += INT_NT) {
+    const int k = idx / (L::PT / 4), col = idx % (L::PT / 4) * 4;
+    *reinterpret_cast<float4*>(h_last + hb + k * P + col) =
+        *reinterpret_cast<const float4*>(sH + k * L::LDS + col);
   }
 }
 
@@ -647,17 +852,19 @@ cudaError_t launch_intra(int dtype, const void* xh, const void* bm,
 }
 
 template <typename T, int N, int P>
-cudaError_t launch_inter(const void* cm, const void* cum, const void* hprev,
-                         const void* y_intra, void* y, int bc, int q, int h,
+cudaError_t launch_inter(const void* cm, const void* cum, const void* s_chunk,
+                         const void* dec, const void* y_intra, const void* h0,
+                         void* y, void* h_last, int b, int c, int q, int h,
                          cudaStream_t stream) {
-  auto kernel = ssd_inter<T, N, P>;
-  const size_t smem = inter_smem_bytes<N, P>(q);
-  cudaError_t err = set_smem(kernel, smem);
+  using L = Inter<T, N, P>;
+  auto kernel = ssd_inter_scan<T, N, P>;
+  cudaError_t err = set_smem(kernel, L::SMEM);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(h, bc), NT, smem, stream>>>(
+  kernel<<<dim3(P / L::PT, h, b), INT_NT, L::SMEM, stream>>>(
       static_cast<const T*>(cm), static_cast<const float*>(cum),
-      static_cast<const float*>(hprev), static_cast<const float*>(y_intra),
-      static_cast<T*>(y), q, h);
+      static_cast<const float*>(s_chunk), static_cast<const float*>(dec),
+      static_cast<const float*>(y_intra), static_cast<const float*>(h0),
+      static_cast<T*>(y), static_cast<float*>(h_last), c, q, h);
   return cudaGetLastError();
 }
 
@@ -667,12 +874,14 @@ cudaError_t launch_inter(const void* cm, const void* cum, const void* hprev,
 
 template <typename T>
 cudaError_t inter_by_shape(int n, int p, const void* cm, const void* cum,
-                           const void* hprev, const void* y_intra, void* y,
-                           int bc, int q, int h, cudaStream_t stream) {
-#define SSD_CASE(N_, P_)                                                   \
-  if (n == N_ && p == P_)                                                  \
-    return launch_inter<T, N_, P_>(cm, cum, hprev, y_intra, y, bc, q, h,   \
-                                   stream);
+                           const void* s_chunk, const void* dec,
+                           const void* y_intra, const void* h0, void* y,
+                           void* h_last, int b, int c, int q, int h,
+                           cudaStream_t stream) {
+#define SSD_CASE(N_, P_)                                                     \
+  if (n == N_ && p == P_)                                                    \
+    return launch_inter<T, N_, P_>(cm, cum, s_chunk, dec, y_intra, h0, y,    \
+                                   h_last, b, c, q, h, stream);
   SSD_SHAPES(SSD_CASE)
 #undef SSD_CASE
   return cudaErrorInvalidValue;
@@ -681,9 +890,10 @@ cudaError_t inter_by_shape(int n, int p, const void* cm, const void* cum,
 }  // namespace
 
 // dtype of xh/bm/cm (intra) or cm/y (inter): 0 = float32, 1 = bfloat16.
-// bc = batch x chunks; 1 <= q <= 128. All tensors contiguous (bf16 intra
-// inputs on 16-byte boundaries). Each returns cudaGetLastError after the
-// launch (0 on success).
+// 1 <= q <= 128; bc = batch x chunks. All tensors contiguous; the ones
+// copied in 16-byte pieces (bf16 intra inputs; inter cm, S and y_intra)
+// on 16-byte boundaries. Each returns cudaGetLastError after the launch
+// (0 on success).
 extern "C" int ssd_intra_fwd(int dtype, int n, int p, const void* xh,
                              const void* bm, const void* cm,
                              const void* log_a, const void* dt, void* y,
@@ -701,17 +911,19 @@ extern "C" int ssd_intra_fwd(int dtype, int n, int p, const void* xh,
   return cudaErrorInvalidValue;
 }
 
+// h0 may be null (a zero state); y and h_last are written.
 extern "C" int ssd_inter_fwd(int dtype, int n, int p, const void* cm,
-                             const void* cum, const void* hprev,
-                             const void* y_intra, void* y, int bc, int q,
-                             int h, void* stream) {
-  if (q < 1 || q > Q_MAX) return cudaErrorInvalidValue;
+                             const void* cum, const void* s_chunk,
+                             const void* dec, const void* y_intra,
+                             const void* h0, void* y, void* h_last, int b,
+                             int c, int q, int h, void* stream) {
+  if (q < 1 || q > Q_MAX || b < 1 || c < 1) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return inter_by_shape<float>(n, p, cm, cum, hprev, y_intra, y, bc, q, h,
-                                 st);
+    return inter_by_shape<float>(n, p, cm, cum, s_chunk, dec, y_intra, h0, y,
+                                 h_last, b, c, q, h, st);
   if (dtype == 1)
-    return inter_by_shape<bf16>(n, p, cm, cum, hprev, y_intra, y, bc, q, h,
-                                st);
+    return inter_by_shape<bf16>(n, p, cm, cum, s_chunk, dec, y_intra, h0, y,
+                                h_last, b, c, q, h, st);
   return cudaErrorInvalidValue;
 }

@@ -3,6 +3,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -20,8 +21,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 @functools.lru_cache(maxsize=None)
 def _fn(name: str):
     fn = getattr(_build.load("ssd_scan"), name)
-    n_ptrs = {"ssd_intra_fwd": 9, "ssd_inter_fwd": 5}[name]
-    fn.argtypes = [_I, _I, _I] + [_P] * n_ptrs + [_I, _I, _I, _P]
+    # (tensor pointers, trailing ints): intra (bc, q, h), inter (b, c, q, h)
+    n_ptrs, n_ints = {"ssd_intra_fwd": (9, 3), "ssd_inter_fwd": (8, 4)}[name]
+    fn.argtypes = [_I, _I, _I] + [_P] * n_ptrs + [_I] * n_ints + [_P]
     fn.restype = ctypes.c_int
     return fn
 
@@ -44,9 +46,16 @@ def _check(q: int, n: int, p: int, model_dtype, tensors, shapes) -> None:
                              f"of the others")
 
 
-def _launch(name: str, dtype, n: int, p: int, ptrs, bc: int, q: int, h: int,
-            device) -> None:
-    err = _fn(name)(_DTYPES[dtype], n, p, *ptrs, bc, q, h,
+def _check_aligned(kernel: str, tensors) -> None:
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the {kernel} copies rows in 16-byte "
+                             f"pieces, so it must start on a 16-byte "
+                             f"boundary")
+
+
+def _launch(name: str, dtype, n: int, p: int, ptrs, ints, device) -> None:
+    err = _fn(name)(_DTYPES[dtype], n, p, *ptrs, *ints,
                     torch.cuda.current_stream(device).cuda_stream)
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
@@ -68,36 +77,48 @@ def ssd_intra_cuda(xh: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor,
                 cm=(xh.dtype, (b, c, q, n)), log_a=(f32, (b, c, q, h)),
                 dt=(f32, (b, c, q, h))))
     if xh.dtype == torch.bfloat16:
-        for name, t in (("xh", xh), ("bm", bm), ("cm", cm)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"{name}: the bf16 kernel copies rows in "
-                                 f"16-byte pieces, so it must start on a "
-                                 f"16-byte boundary")
+        _check_aligned("bf16 kernel", dict(xh=xh, bm=bm, cm=cm))
     y = torch.empty((b, c, q, h, p), dtype=f32, device=xh.device)
     s = torch.empty((b, c, h, n, p), dtype=f32, device=xh.device)
     dec = torch.empty((b, c, h), dtype=f32, device=xh.device)
     cum = torch.empty((b, c, q, h), dtype=f32, device=xh.device)
     _launch("ssd_intra_fwd", xh.dtype, n, p,
             [t.data_ptr() for t in (xh, bm, cm, log_a, dt, y, s, dec, cum)],
-            b * c, q, h, xh.device)
+            (b * c, q, h), xh.device)
     return y, s, dec, cum
 
 
-def ssd_inter_cuda(cm: torch.Tensor, cum: torch.Tensor, h_prevs: torch.Tensor,
-                   y_intra: torch.Tensor, out_dtype) -> torch.Tensor:
-    """cm: (b, c, q, n) of ``out_dtype``; cum: (b, c, q, h) fp32; h_prevs:
-    (b, c, h, n, p) fp32; y_intra: (b, c, q, h, p) fp32. Returns y
-    (b, c, q, h, p) in ``out_dtype``."""
+def ssd_inter_cuda(cm: torch.Tensor, cum: torch.Tensor,
+                   s_chunk: torch.Tensor, chunk_decay: torch.Tensor,
+                   y_intra: torch.Tensor, out_dtype,
+                   h0: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The inter-chunk pass with the chunk recurrence folded in. cm:
+    (b, c, q, n) of ``out_dtype``; cum: (b, c, q, h), s_chunk:
+    (b, c, h, n, p), chunk_decay: (b, c, h) and y_intra: (b, c, q, h, p),
+    all fp32 from the intra pass; h0: (b, h, n, p) fp32 or None (zeros).
+    Returns (y (b, c, q, h, p) in ``out_dtype``, the last state
+    (b, h, n, p) fp32). float32 runs the scalar route, bfloat16 the
+    tensor-core route."""
     b, c, q, n = cm.shape
-    h, p = cum.shape[-1], h_prevs.shape[-1]
+    h, p = cum.shape[-1], y_intra.shape[-1]
     f32 = torch.float32
-    _check(q, n, p, out_dtype,
-           dict(cm=cm, cum=cum, h_prevs=h_prevs, y_intra=y_intra),
-           dict(cm=(out_dtype, (b, c, q, n)), cum=(f32, (b, c, q, h)),
-                h_prevs=(f32, (b, c, h, n, p)),
-                y_intra=(f32, (b, c, q, h, p))))
+    tensors = dict(cm=cm, cum=cum, s_chunk=s_chunk, chunk_decay=chunk_decay,
+                   y_intra=y_intra)
+    shapes = dict(cm=(out_dtype, (b, c, q, n)), cum=(f32, (b, c, q, h)),
+                  s_chunk=(f32, (b, c, h, n, p)),
+                  chunk_decay=(f32, (b, c, h)),
+                  y_intra=(f32, (b, c, q, h, p)))
+    if h0 is not None:
+        tensors["h0"] = h0
+        shapes["h0"] = (f32, (b, h, n, p))
+    _check(q, n, p, out_dtype, tensors, shapes)
+    _check_aligned("inter kernel", dict(cm=cm, s_chunk=s_chunk,
+                                        y_intra=y_intra))
     y = torch.empty((b, c, q, h, p), dtype=out_dtype, device=cm.device)
-    _launch("ssd_inter_fwd", out_dtype, n, p,
-            [t.data_ptr() for t in (cm, cum, h_prevs, y_intra, y)],
-            b * c, q, h, cm.device)
-    return y
+    h_last = torch.empty((b, h, n, p), dtype=f32, device=cm.device)
+    ptrs = [t.data_ptr() for t in (cm, cum, s_chunk, chunk_decay, y_intra)]
+    ptrs += [None if h0 is None else h0.data_ptr(), y.data_ptr(),
+             h_last.data_ptr()]
+    _launch("ssd_inter_fwd", out_dtype, n, p, ptrs, (b, c, q, h), cm.device)
+    return y, h_last

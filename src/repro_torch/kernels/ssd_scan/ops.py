@@ -1,6 +1,6 @@
 """Public SSD scan: intra-chunk pass (which also takes the chunk cumsum)
--> chunk recurrence -> inter-chunk pass (counterpart of
-``repro.kernels.ssd_scan.ops``)."""
+-> inter-chunk pass (which also runs the chunk recurrence), the
+counterpart of ``repro.kernels.ssd_scan.ops``."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -8,8 +8,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels.ssd_scan.kernel import ssd_inter_cuda, ssd_intra_cuda
-from repro_torch.kernels.ssd_scan.ref import ssd_inter_ref, ssd_intra_ref
-from repro_torch.models.mamba2 import chunk_len, chunk_recurrence
+from repro_torch.kernels.ssd_scan.ref import ssd_inter_scan_ref, ssd_intra_ref
+from repro_torch.models.mamba2 import chunk_len
 
 #: launches of each CUDA pass since the counts were last set to 0
 intra_launches = 0
@@ -30,12 +30,16 @@ def ssd_intra(xh, bm, cm, log_a, dt):
     return out
 
 
-def ssd_inter(cm, cum, h_prevs, y_intra, out_dtype):
-    """The inter-chunk pass, dispatched as :func:`ssd_intra`."""
+def ssd_inter(cm, cum, s_chunk, chunk_decay, y_intra, out_dtype, h0=None):
+    """The inter-chunk pass with the chunk recurrence folded in: returns
+    (y, the last state). Dispatched as :func:`ssd_intra`; for a CPU
+    tensor, ``chunk_recurrence`` and the plain pass."""
     global inter_launches
     if cm.device.type == "cpu":
-        return ssd_inter_ref(cm, cum, h_prevs, y_intra, out_dtype)
-    out = ssd_inter_cuda(cm, cum, h_prevs, y_intra, out_dtype)
+        return ssd_inter_scan_ref(cm, cum, s_chunk, chunk_decay, y_intra,
+                                  out_dtype, h0)
+    out = ssd_inter_cuda(cm, cum, s_chunk, chunk_decay, y_intra, out_dtype,
+                         h0)
     inter_launches += 1
     return out
 
@@ -48,9 +52,9 @@ def ssd_scan(xh: torch.Tensor, b_mat: torch.Tensor, c_mat: torch.Tensor,
 
     xh: (b, s, h, p); b_mat/c_mat: (b, s, n); log_a/dt: (b, s, h).
     Returns (y (b, s, h, p) in xh's type, final state (b, h, n, p) fp32).
-    The chunk recurrence between the passes is a short torch loop over
-    s / chunk steps, as the reference runs it in a ``lax.scan`` outside
-    its kernels.
+    The chunk recurrence from ``h0`` (zeros if None), which the reference
+    runs in a ``lax.scan`` between its kernels, runs inside the inter
+    pass: the states entering each chunk are never stored.
     """
     bsz, s, h, p = xh.shape
     n = b_mat.shape[-1]
@@ -64,7 +68,6 @@ def ssd_scan(xh: torch.Tensor, b_mat: torch.Tensor, c_mat: torch.Tensor,
     dc = dt.reshape(bsz, c, q, h).float()
 
     y_intra, s_chunk, chunk_decay, cum = ssd_intra(xc, bc, cc, la, dc)
-
-    h_prevs, h_last = chunk_recurrence(s_chunk, chunk_decay, h0)
-    y = ssd_inter(cc, cum, h_prevs, y_intra, xh.dtype)
+    y, h_last = ssd_inter(cc, cum, s_chunk, chunk_decay, y_intra, xh.dtype,
+                          None if h0 is None else h0.float())
     return y.reshape(bsz, s, h, p), h_last

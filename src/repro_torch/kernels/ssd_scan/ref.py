@@ -3,10 +3,12 @@
 ``ssd_intra_ref`` and ``ssd_inter_ref`` repeat the arithmetic of the two
 Pallas kernel bodies (``repro/kernels/ssd_scan/kernel.py``,
 ``_intra_kernel`` and ``_inter_kernel``): every input is cast to fp32
-first, and the decay exponent is masked before the ``exp``. They are what
-``ops`` runs on a CPU tensor and what the CUDA kernels are held against
-on the card. ``ssd_scan_ref`` is the chunked model path and
-``ssd_scan_naive`` the per-token recurrence that defines the semantics.
+first, and the decay exponent is masked before the ``exp``.
+``ssd_inter_scan_ref`` is the chunk recurrence followed by
+``ssd_inter_ref``, the work of the CUDA inter pass. They are what ``ops``
+runs on a CPU tensor and what the CUDA kernels are held against on the
+card. ``ssd_scan_ref`` is the chunked model path and ``ssd_scan_naive``
+the per-token recurrence that defines the semantics.
 """
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.models.mamba2 import SSMConfig, _ssd_chunked
+from repro_torch.models.mamba2 import (SSMConfig, _ssd_chunked,
+                                      chunk_recurrence)
 
 
 def ssd_intra_ref(xh, bm, cm, cum, dt):
@@ -47,6 +50,15 @@ def ssd_inter_ref(cm, cum, h_prevs, y_intra, out_dtype):
     ch = torch.einsum("bcqn,bchnp->bcqhp", cm.float(), h_prevs.float())
     y_inter = ch * torch.exp(cum.float())[..., None]
     return (y_intra.float() + y_inter).to(out_dtype)
+
+
+def ssd_inter_scan_ref(cm, cum, s_chunk, chunk_decay, y_intra, out_dtype,
+                       h0: Optional[torch.Tensor] = None):
+    """``chunk_recurrence`` from ``h0`` (zeros if None), then
+    ``ssd_inter_ref`` on the states entering each chunk. Returns (y in
+    ``out_dtype``, the last state fp32)."""
+    h_prevs, h_last = chunk_recurrence(s_chunk, chunk_decay, h0)
+    return ssd_inter_ref(cm, cum, h_prevs, y_intra, out_dtype), h_last
 
 
 def ssd_scan_ref(xh, b_mat, c_mat, log_a, dt, *, chunk: int = 128,

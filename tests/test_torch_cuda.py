@@ -15,8 +15,9 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm.ref import fused_rmsnorm_ref
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
-from repro_torch.kernels.ssd_scan.ref import (ssd_inter_ref, ssd_intra_ref,
-                                              ssd_scan_ref)
+from repro_torch.kernels.ssd_scan.ref import (ssd_inter_scan_ref,
+                                              ssd_intra_ref, ssd_scan_ref)
+from repro_torch.models.mamba2 import chunk_recurrence
 
 TOL = {torch.float32: dict(atol=2e-5, rtol=2e-4),
        torch.bfloat16: dict(atol=6e-2, rtol=6e-2)}
@@ -158,15 +159,17 @@ def _chunked(xh, bm, cm, log_a, dt, chunk):
 
 @pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_ssd_passes_match_plain(cuda, b, s, h, p, n, chunk, dtype):
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_ssd_passes_match_plain(cuda, b, s, h, p, n, chunk, dtype, with_h0):
     """Both passes against their plain versions. ``log_a`` lies on the
     2^-10 grid, where every cumsum is exact, so the intra outputs are
-    compared on the pass's own arithmetic whatever the summation order."""
+    compared on the pass's own arithmetic whatever the summation order.
+    The inter pass runs the chunk recurrence itself: its last state equals
+    ``chunk_recurrence``'s bit for bit, from zeros or from a given h0."""
     rng = np.random.default_rng(3)
     xh, bm, cm, log_a, dt = _scan_inputs(rng, b, s, h, p, n, dtype, cuda)
     log_a = torch.round(log_a * 1024) / 1024
     xc, bc, cc, la, dc = _chunked(xh, bm, cm, log_a, dt, chunk)
-    c, q = xc.shape[1:3]
     cum = torch.cumsum(la, dim=2)
     before = ssd_ops.intra_launches
     got = ssd_ops.ssd_intra(xc, bc, cc, la, dc)
@@ -177,12 +180,16 @@ def test_ssd_passes_match_plain(cuda, b, s, h, p, n, chunk, dtype):
     for g, w, tol in zip(got, want, (TOL[torch.float32], STATE_TOL,
                                      TOL[torch.float32])):
         _close(g, w, tol)
-    hprev = _normal(rng, (b, c, h, n, p), torch.float32, cuda)
+    y_intra, s_chunk, dec, _ = got
+    h0 = _normal(rng, (b, h, n, p), torch.float32, cuda) if with_h0 else None
     before = ssd_ops.inter_launches
-    y = ssd_ops.ssd_inter(cc, cum, hprev, got[0], dtype)
+    y, h_last = ssd_ops.ssd_inter(cc, cum, s_chunk, dec, y_intra, dtype, h0)
     torch.cuda.synchronize()
-    assert ssd_ops.inter_launches == before + 1 and y.dtype == dtype
-    _close(y, ssd_inter_ref(cc, cum, hprev, got[0], dtype), TOL[dtype])
+    assert ssd_ops.inter_launches == before + 1
+    assert y.dtype == dtype and h_last.dtype == torch.float32
+    assert torch.equal(h_last, chunk_recurrence(s_chunk, dec, h0)[1])
+    want_y, _ = ssd_inter_scan_ref(cc, cum, s_chunk, dec, y_intra, dtype, h0)
+    _close(y, want_y, TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -198,18 +205,20 @@ def test_ssd_intra_cum_matches_torch_cumsum(cuda, dtype):
 
 @pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_ssd_scan_matches_plain(cuda, b, s, h, p, n, chunk, dtype):
-    xh, bm, cm, log_a, dt = _scan_inputs(np.random.default_rng(4), b, s, h,
-                                         p, n, dtype, cuda)
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_ssd_scan_matches_plain(cuda, b, s, h, p, n, chunk, dtype, with_h0):
+    rng = np.random.default_rng(4)
+    xh, bm, cm, log_a, dt = _scan_inputs(rng, b, s, h, p, n, dtype, cuda)
+    h0 = _normal(rng, (b, h, n, p), torch.float32, cuda) if with_h0 else None
     before = (ssd_ops.intra_launches, ssd_ops.inter_launches)
-    y, hf = ssd_ops.ssd_scan(xh, bm, cm, log_a, dt, chunk=chunk)
+    y, hf = ssd_ops.ssd_scan(xh, bm, cm, log_a, dt, chunk=chunk, h0=h0)
     torch.cuda.synchronize()
     assert (ssd_ops.intra_launches, ssd_ops.inter_launches) == (
         before[0] + 1, before[1] + 1)
     # the chunked path on the inputs cast to fp32, the arithmetic of the
     # Pallas bodies: at bf16 the chunked path itself rounds C B^T to bf16
     yr, hr = ssd_scan_ref(xh.float(), bm.float(), cm.float(), log_a, dt,
-                          chunk=chunk)
+                          chunk=chunk, h0=h0)
     assert y.dtype == dtype and hf.dtype == torch.float32
     _close(y, yr, TOL[dtype])
     _close(hf, hr, STATE_TOL)
@@ -232,6 +241,28 @@ def test_ssd_bf16_intra_rejects_misaligned_input(cuda, name):
     assert ssd_ops.intra_launches == before
 
 
+@pytest.mark.parametrize("name", ["cm", "s_chunk", "y_intra"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_inter_rejects_misaligned_input(cuda, name, dtype):
+    """An input the inter pass copies in 16-byte pieces that starts off a
+    16-byte boundary raises; the wrapper never copies it into place."""
+    b, c, q, h, p, n = 1, 2, 64, 4, 32, 16
+    shapes = dict(cm=(b, c, q, n), s_chunk=(b, c, h, n, p),
+                  y_intra=(b, c, q, h, p))
+    ins = {k: torch.zeros(v, dtype=dtype if k == "cm" else torch.float32,
+                          device=cuda) for k, v in shapes.items()}
+    t = ins[name]
+    ins[name] = torch.zeros(t.numel() + 4, dtype=t.dtype,
+                            device=cuda)[2:2 + t.numel()].view(t.shape)
+    cum = torch.zeros((b, c, q, h), device=cuda)
+    dec = torch.ones((b, c, h), device=cuda)
+    before = ssd_ops.inter_launches
+    with pytest.raises(ValueError, match="16-byte"):
+        ssd_ops.ssd_inter(ins["cm"], cum, ins["s_chunk"], dec, ins["y_intra"],
+                          dtype)
+    assert ssd_ops.inter_launches == before
+
+
 @pytest.mark.parametrize("b,c,q,h,p,n", [(1, 1, 256, 4, 64, 64),
                                          (1, 2, 32, 4, 48, 16),
                                          (1, 2, 32, 4, 32, 64)])
@@ -243,4 +274,5 @@ def test_ssd_kernels_reject_unsupported_shapes(cuda, b, c, q, h, p, n):
         ssd_ops.ssd_intra(xh, bm, bm, cum, cum)
     with pytest.raises(ValueError, match="SSD kernels take"):
         ssd_ops.ssd_inter(bm, cum, torch.zeros((b, c, h, n, p), device=cuda),
-                          xh, torch.float32)
+                          torch.zeros((b, c, h), device=cuda), xh,
+                          torch.float32)

@@ -41,7 +41,9 @@ def test_port_imports_with_jax_and_repro_blocked():
 
 
 def test_port_sources_import_no_jax_or_repro():
-    files = sorted(PORT.glob("**/*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.glob("**/*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_prefill_profile.py",
+        ROOT / "scripts" / "ssd_inter_variants.py"]
     bad = re.compile(r"^\s*(import|from)\s+(jax\b|repro\b(?!_torch))",
                      re.MULTILINE)
     offenders = [str(f) for f in files if bad.search(f.read_text())]

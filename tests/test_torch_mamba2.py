@@ -93,6 +93,53 @@ def test_ssd_scan_matches_pallas(b, s, h, p, n, chunk, dtype):
 
 @pytest.mark.parametrize("b,s,h,p,n,chunk", SWEEP)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_from_h0_matches_pallas(b, s, h, p, n, chunk, dtype):
+    """A given initial state: the port's inter pass runs the chunk
+    recurrence from ``h0``, the reference's ``lax.scan`` starts from it."""
+    rng = np.random.default_rng(8)
+    xh, bm, cm, log_a, dt = _scan_inputs(rng, b, s, h, p, n)
+    (txh, jxh), (tbm, jbm), (tcm, jcm) = (_both(a, dtype)
+                                          for a in (xh, bm, cm))
+    (tla, jla), (tdt, jdt), (th0, jh0) = (
+        _both(a, "float32")
+        for a in (log_a, dt, rng.standard_normal((b, h, n, p))))
+    want_y, want_h = jax_ssd_scan(jxh, jbm, jcm, jla, jdt, chunk=chunk,
+                                  interpret=True, h0=jh0)
+    y, hf = ssd_ops.ssd_scan(txh, tbm, tcm, tla, tdt, chunk=chunk, h0=th0)
+    assert y.dtype == txh.dtype and hf.dtype == torch.float32
+    _close(y, want_y, TOL[dtype])
+    _close(hf, want_h, STATE_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_ssd_inter_op_is_recurrence_then_plain_pass(dtype, with_h0):
+    """On a CPU tensor ``ops.ssd_inter`` runs ``ssd_inter_scan_ref``, the
+    plain version the CUDA inter pass is held against: exactly
+    ``chunk_recurrence`` followed by ``ssd_inter_ref``."""
+    b, c, q, h, p, n = 2, 3, 16, 4, 16, 8
+    rng = np.random.default_rng(9)
+    f32 = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32))
+    cm = f32(b, c, q, n).to(getattr(torch, dtype))
+    cum = torch.from_numpy(np.cumsum(-rng.random((b, c, q, h)),
+                                     axis=2).astype(np.float32))
+    s_chunk, y_intra = f32(b, c, h, n, p), f32(b, c, q, h, p)
+    dec = torch.exp(cum[:, :, -1])
+    h0 = f32(b, h, n, p) if with_h0 else None
+    out_dtype = getattr(torch, dtype)
+    before = ssd_ops.inter_launches
+    y, h_last = ssd_ops.ssd_inter(cm, cum, s_chunk, dec, y_intra, out_dtype,
+                                  h0)
+    assert ssd_ops.inter_launches == before      # no kernel on the CPU
+    h_prevs, want_h = m2.chunk_recurrence(s_chunk, dec, h0)
+    want_y = ssd_inter_ref(cm, cum, h_prevs, y_intra, out_dtype)
+    assert y.dtype == out_dtype and h_last.dtype == torch.float32
+    assert torch.equal(y, want_y) and torch.equal(h_last, want_h)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SWEEP)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ssd_passes_match_pallas_bodies(b, s, h, p, n, chunk, dtype):
     """Each plain pass against its Pallas kernel on the same inputs."""
     rng = np.random.default_rng(5)
