@@ -26,12 +26,25 @@ Phases, in order; any failure exits non-zero:
      call (torch.profiler) for one decode step and one prefill of each
      served model, and neither torch's cumsum nor the chunk recurrence's
      stack left in the zamba2 prefill;
-  6. one JSON line of per-kernel numbers and, last, the device line.
+  6. training, through the plain paths (no kernel has a backward pass;
+     none may launch): full-width, full-depth qwen3-0.6b in bf16 with
+     remat "dots" at 8 x 512 tokens, whose loss must fall on a fixed
+     batch (step time, tokens/s, share of the bf16 peak, peak memory, one
+     profiled step); the memory knobs (remat none / dots / full,
+     microbatches 2 against 1) from one state, each step's loss and grad
+     norm held to the others'; the resilient loop at full width and 2
+     layers, once without a fault (no failure, no restore) and once with
+     one injected after a checkpoint (one restore, the same losses); and
+     flash attention refusing autograd on the card;
+  7. one JSON line of training numbers, one of per-kernel numbers and,
+     last, the device line.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -44,6 +57,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import get_config, reduced_config
+from repro_torch.distributed import InjectedFault, ResilientLoop
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
@@ -55,9 +69,13 @@ from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.kernel import ssd_inter_cuda, ssd_intra_cuda
 from repro_torch.kernels.ssd_scan.ref import (ssd_inter_scan_ref,
                                               ssd_intra_ref, ssd_scan_ref)
+from repro_torch.models.attention import sdpa
 from repro_torch.models.mamba2 import chunk_recurrence
 from repro_torch.models.model import Model
+from repro_torch.models.transformer import tree_leaves
 from repro_torch.serving import RequestQueue, ServeEngine
+from repro_torch.training import (AdamWConfig, SyntheticDataset, adamw_init,
+                                  make_train_step)
 
 #: H100 SXM data-sheet peaks (dense): bf16 tensor cores, fp32 outside them,
 #: and HBM3 bandwidth
@@ -82,6 +100,20 @@ PROFILE_CALLS = 5
 #: printed for comparison and kept out of the measured kernels line
 PREV_MS = {"flash_attention": 0.13056, "fused_rmsnorm": 0.00514,
            "ssd_intra": 0.07731, "ssd_inter": 0.01626}
+#: the training phase: global batch x sequence, steps on one batch (3 warm,
+#: TRAIN_TIMED timed), the least fall of its loss (nats), the optimizer
+TRAIN_BATCH, TRAIN_SEQ = 8, 512
+TRAIN_STEPS, TRAIN_TIMED, TRAIN_LOSS_DROP = 20, 10, 1.0
+TRAIN_OPT = AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=100)
+#: timed steps per knob, and how far a knob's first-step loss and grad
+#: norm may sit from remat "dots" (relative): remat recomputes the same
+#: arithmetic; two microbatches run other GEMM shapes and sum bf16
+#: gradients in fp32
+KNOB_TIMED = 3
+REMAT_TOL = dict(loss=1e-5, grad_norm=1e-4)
+MICROBATCH_TOL = dict(loss=1e-3, grad_norm=1e-2)
+#: the resilient loop: steps, checkpoint cadence, the step that faults
+RESILIENT_STEPS, RESILIENT_CKPT_EVERY, RESILIENT_FAULT_AT = 6, 3, 4
 
 
 def check(ok: bool, what: str) -> None:
@@ -442,59 +474,63 @@ def print_serving(name, engine, results, lengths, wall, launches):
           f"{n_tokens / busy:.1f} tokens/s; launches {launches}")
 
 
-def where_time_goes(model, params, engine, kernels,
-                    n: int = PROFILE_CALLS):
+def profile_call(name, fn, kernels, n: int = PROFILE_CALLS):
     """Host wall time against device-busy time (the sum of the kernels'
-    times in a torch.profiler trace) for one decode step of the 4-slot
-    batch and one 512-token prefill, warm, as the main path runs them;
+    times in a torch.profiler trace) of ``n`` warm calls of ``fn``;
     ``kernels`` names the port's kernels by a substring of their names.
-    Returns {call: (its kernel rows, longest first, kernel launches per
-    call)}."""
+    Prints one line and the top kernels; returns (its kernel rows,
+    longest first, kernel launches per call, wall ms, device-busy ms per
+    call)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / n * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    # kernel rows only: a CPU op's row repeats its kernels' time
+    rows = sorted((r for r in prof.key_averages()
+                   if r.device_type == DeviceType.CUDA),
+                  key=lambda r: -r.self_device_time_total)
+    launches = sum(r.count for r in rows) // n
+    device_ms = sum(r.self_device_time_total for r in rows) / n / 1e3
+    if device_ms == 0.0:
+        print(f"  {name}: wall {wall_ms:.3f} ms; device time not "
+              f"measured (the profiler saw no kernel)")
+        return rows, launches, wall_ms, None
+    share = lambda key: sum(r.self_device_time_total for r in rows
+                            if key in r.key) / n / 1e3
+    shares = "".join(f", {kname} {share(key):.3f} ms"
+                     for kname, key in kernels.items())
+    print(f"  {name}: wall {wall_ms:.3f} ms, device busy "
+          f"{device_ms:.3f} ms (idle share "
+          f"{1 - device_ms / wall_ms:.3f}), {launches} kernel launches "
+          f"per call{shares}; top kernels:")
+    for r in rows[:6]:
+        print(f"    {r.self_device_time_total / n / 1e3:.3f} ms "
+              f"x{r.count // n} {r.key[:90]}")
+    return rows, launches, wall_ms, device_ms
+
+
+def where_time_goes(model, params, engine, kernels):
+    """``profile_call`` for one decode step of the 4-slot batch and one
+    512-token prefill, warm, as the main path runs them. Returns {call:
+    (its kernel rows, longest first, kernel launches per call)}."""
     prompt = torch.randint(0, model.cfg.vocab, (1, 512), device="cuda")
-    traces = {}
     calls = {
         "decode step, 4 slots": lambda: model.decode_step(
             params, engine.cache, engine.last_tokens),
         "prefill, 512 tokens": lambda: model.prefill(
             params, {"tokens": prompt}, max_len=engine.max_len)}
-    for name, fn in calls.items():
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) / n * 1e3
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        # kernel rows only: a CPU op's row repeats its kernels' time
-        rows = sorted((r for r in prof.key_averages()
-                       if r.device_type == DeviceType.CUDA),
-                      key=lambda r: -r.self_device_time_total)
-        launches = sum(r.count for r in rows) // n
-        traces[name] = rows, launches
-        device_ms = sum(r.self_device_time_total for r in rows) / n / 1e3
-        if device_ms == 0.0:
-            print(f"  {name}: wall {wall_ms:.3f} ms; device time not "
-                  f"measured (the profiler saw no kernel)")
-            continue
-        share = lambda key: sum(r.self_device_time_total for r in rows
-                                if key in r.key) / n / 1e3
-        shares = ", ".join(f"{kname} {share(key):.3f} ms"
-                           for kname, key in kernels.items())
-        print(f"  {name}: wall {wall_ms:.3f} ms, device busy "
-              f"{device_ms:.3f} ms (idle share "
-              f"{1 - device_ms / wall_ms:.3f}), {launches} kernel launches "
-              f"per call, {shares}; top kernels:")
-        for r in rows[:6]:
-            print(f"    {r.self_device_time_total / n / 1e3:.3f} ms "
-                  f"x{r.count // n} {r.key[:90]}")
-    return traces
+    return {name: profile_call(name, fn, kernels)[:2]
+            for name, fn in calls.items()}
 
 
 def rmsnorm_entry_point():
@@ -511,6 +547,232 @@ def rmsnorm_entry_point():
     check(y.shape == x.shape and bool(torch.isfinite(y).all()),
           "finite normed rows")
     return launches
+
+
+# --------------------------------------------------------------------------
+# phase 6: training
+# --------------------------------------------------------------------------
+
+def train_flops(cfg, params, b: int, s: int) -> float:
+    """Model FLOPs of one training step: 6 N per token, N the parameters
+    that enter a matmul (the layers' projections and the unembedding),
+    plus the attention products, QK^T and PV over the full square the
+    plain path computes, forward and twice backward. Recomputation is
+    not counted."""
+    n_mm = (sum(t.numel() for t in tree_leaves(params["layers"])
+                if t.dim() == 3)
+            + sum(t.numel() for t in tree_leaves(params["embed"])))
+    attn = 3 * 4 * cfg.n_layers * b * cfg.n_heads * s * s * cfg.hd
+    return 6 * n_mm * b * s + attn
+
+
+def train_steps(step, state, batch, n: int):
+    """``n`` steps on one batch; returns (state, losses, grad norms, the
+    device time of each step from CUDA events)."""
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    metrics = []
+    events[0].record()
+    for i in range(n):
+        state, m = step(state, batch)
+        metrics.append(m)
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"finite losses {losses} and grad norms {norms}")
+    return state, losses, norms, ms
+
+
+def train_main_path():
+    """Full-width, full-depth qwen3-0.6b in bf16 (remat "dots"), global
+    batch 8 x 512 tokens from SyntheticDataset on the card, through
+    make_train_step: 3 warm steps, TRAIN_TIMED timed steps, and the rest
+    of TRAIN_STEPS on the same batch, whose loss must fall; then one warm
+    step under torch.profiler. Returns (result dict, model, initial
+    state, batch)."""
+    cfg = get_config("qwen3-0.6b", remat="dots")
+    model = Model(cfg)
+    state0 = adamw_init(model.init(seed=0))
+    ds = SyntheticDataset(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH, seed=0)
+    batch = ds.batch_at(0)
+    check(batch["tokens"].is_cuda and batch["tokens"].shape
+          == (TRAIN_BATCH, TRAIN_SEQ), "an 8 x 512 batch on the card")
+    step = make_train_step(model, TRAIN_OPT)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    state, warm, _, warm_ms = train_steps(step, state0, batch, 3)
+    state, timed, norms, ms = train_steps(step, state, batch, TRAIN_TIMED)
+    state, rest, _, _ = train_steps(step, state, batch,
+                                    TRAIN_STEPS - 3 - TRAIN_TIMED)
+    peak = torch.cuda.max_memory_allocated()
+    losses = warm + timed + rest
+    check(int(state["step"]) == TRAIN_STEPS, "the step counter advanced")
+    check(losses[-1] < losses[0] - TRAIN_LOSS_DROP,
+          f"the loss falls by more than {TRAIN_LOSS_DROP} on a fixed batch "
+          f"over {TRAIN_STEPS} steps: {losses[0]:.4f} -> {losses[-1]:.4f}")
+    step_ms = sum(ms) / len(ms)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_flops(cfg, state0["params"], TRAIN_BATCH, TRAIN_SEQ)
+    print(f"qwen3-0.6b training, bf16, remat dots, {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens: step {step_ms:.3f} ms (CUDA events, mean of "
+          f"{TRAIN_TIMED}; min {min(ms):.3f}, max {max(ms):.3f}; first warm "
+          f"step {warm_ms[0]:.3f}), {tokens / step_ms * 1e3:.1f} tokens/s, "
+          f"{flops / 1e12:.3f} TFLOP per step, "
+          f"{flops / (step_ms * 1e-3) / PEAK_FLOPS[torch.bfloat16]:.4f} of "
+          f"the bf16 dense peak; peak memory {peak / 2**30:.3f} GiB "
+          f"({resident / 2**30:.3f} GiB resident before the first step)")
+    print(f"  loss over {TRAIN_STEPS} steps on one batch: "
+          f"{[round(x, 4) for x in losses]}")
+    print("where the time goes (one warm training step):")
+    rows, launches, wall_ms, device_ms = profile_call(
+        "train step, remat dots", lambda: step(state, batch), {}, n=1)
+    check(device_ms is not None, "the profiler saw the train step's kernels")
+    result = dict(
+        arch="qwen3-0.6b", dtype="bfloat16", remat="dots",
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
+        step_ms=step_ms, step_ms_min=min(ms), step_ms_max=max(ms),
+        first_step_ms=warm_ms[0], tokens_per_s=tokens / step_ms * 1e3,
+        tflop_per_step=flops / 1e12,
+        peak_share=flops / (step_ms * 1e-3) / PEAK_FLOPS[torch.bfloat16],
+        peak_bytes=peak, resident_bytes=resident,
+        loss_first=losses[0], loss_last=losses[-1], grad_norm=norms[-1],
+        profiled_wall_ms=wall_ms, device_busy_ms=device_ms,
+        idle_share=1 - device_ms / wall_ms, launches_per_step=launches,
+        top_kernels=[[r.key[:80], r.self_device_time_total / 1e3]
+                     for r in rows[:5]])
+    return result, model, state0, batch
+
+
+def train_knobs(model, state0, batch):
+    """The autotuner's memory knobs at the main shape: remat none / dots
+    / full and microbatches 2 against 1, each from the same state on the
+    same batch. Each gives one step (its loss and grad norm compared
+    across the knob) and KNOB_TIMED timed steps, with its peak memory."""
+    out = {}
+    for name, cfg, m in (
+            ("remat none", dataclasses.replace(model.cfg, remat="none"), 1),
+            ("remat dots", model.cfg, 1),
+            ("remat full", dataclasses.replace(model.cfg, remat="full"), 1),
+            ("remat dots, 2 microbatches", model.cfg, 2)):
+        step = make_train_step(Model(cfg), TRAIN_OPT, microbatches=m)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state, losses, norms, _ = train_steps(step, state0, batch, 1)
+        _, _, _, ms = train_steps(step, state, batch, KNOB_TIMED)
+        del state
+        out[name] = dict(loss=losses[0], grad_norm=norms[0],
+                         step_ms=sum(ms) / len(ms),
+                         peak_bytes=torch.cuda.max_memory_allocated())
+        print(f"  {name}: step {out[name]['step_ms']:.3f} ms (mean of "
+              f"{KNOB_TIMED}), peak memory "
+              f"{out[name]['peak_bytes'] / 2**30:.3f} GiB, first-step loss "
+              f"{losses[0]:.6f}, grad norm {norms[0]:.6f}")
+    rel = lambda a, b, k: abs(out[a][k] - out[b][k]) / abs(out[b][k])
+    for name, tol in (("remat none", REMAT_TOL), ("remat full", REMAT_TOL),
+                      ("remat dots, 2 microbatches", MICROBATCH_TOL)):
+        for k in ("loss", "grad_norm"):
+            err = rel(name, "remat dots", k)
+            out[name][f"{k}_rel_diff"] = err
+            check(err <= tol[k], f"{name}: {k} within rel {tol[k]} of "
+                                 f"remat dots, got {err:.3g}")
+    return out
+
+
+def train_resilient():
+    """ResilientLoop at full width and 2 layers: an uninterrupted run,
+    which must see no failure and no restore (the loop catches every
+    RuntimeError, so a real fault would hide behind a restore), then a
+    run with one fault injected after a checkpoint, which must restore
+    once and reproduce the uninterrupted losses; checkpoints go to build/
+    and are deleted afterwards."""
+    cfg = get_config("qwen3-0.6b", n_layers=2, remat="dots")
+    model = Model(cfg)
+    state0 = adamw_init(model.init(seed=0))
+    ds = SyntheticDataset(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH, seed=1)
+    step = make_train_step(model, TRAIN_OPT)
+    ckpt_root = Path(__file__).resolve().parent / "build" / "train_smoke_ckpt"
+    n_params = sum(t.numel() for t in tree_leaves(state0["params"]))
+
+    def run(name, fault_at=None):
+        log, fired = [], []
+
+        def recording(st, b):
+            st2, m = step(st, b)
+            log.append((int(st["step"]), float(m["loss"])))
+            return st2, m
+
+        def fault_hook(i):
+            if i == fault_at and not fired:
+                fired.append(i)
+                raise InjectedFault(f"injected at step {i}")
+
+        loop = ResilientLoop(recording, state0, ckpt_dir=str(ckpt_root /
+                                                             name),
+                             ckpt_every=RESILIENT_CKPT_EVERY, keep=1,
+                             fault_hook=fault_hook)
+        t0 = time.perf_counter()
+        report = loop.run(ds, until_step=RESILIENT_STEPS)
+        wall = time.perf_counter() - t0
+        shutil.rmtree(ckpt_root / name)
+        return loop.state, report, log, wall
+
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    try:
+        ref_state, ref, ref_log, ref_wall = run("clean")
+        state, rep, log, wall = run("faulty", fault_at=RESILIENT_FAULT_AT)
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    check(ref.failures == ref.restores == 0 and
+          ref.final_step == RESILIENT_STEPS,
+          f"the run without a fault: 0 failures, 0 restores, "
+          f"{RESILIENT_STEPS} steps; got {ref}")
+    check(rep.failures == rep.restores == 1 and
+          rep.final_step == RESILIENT_STEPS,
+          f"the run with one fault: 1 failure, 1 restore; got {rep}")
+    want = dict(ref_log)
+    check(len(want) == RESILIENT_STEPS, "one loss per step")
+    rel = max(abs(loss - want[i]) / abs(want[i]) for i, loss in log)
+    check(rel <= 1e-6, f"losses after the restore equal the uninterrupted "
+                       f"run's (rel 1e-6), got {rel:.3g}")
+    replayed = sorted(i for i, _ in log)
+    check(len(log) > RESILIENT_STEPS, f"steps replayed: {replayed}")
+    same_state = all(torch.equal(a, b) for a, b in
+                     zip(tree_leaves(state), tree_leaves(ref_state)))
+    print(f"qwen3-0.6b full width, 2 layers ({n_params / 1e6:.1f}M params), "
+          f"ResilientLoop to step {RESILIENT_STEPS}, checkpoints every "
+          f"{RESILIENT_CKPT_EVERY}: clean run {ref_wall:.2f} s, 0 failures "
+          f"and 0 restores; fault at step {RESILIENT_FAULT_AT}: 1 restore, "
+          f"steps run {replayed}, {wall:.2f} s; max rel loss diff {rel:.3g}; "
+          f"final state bit-equal: {same_state}")
+    return dict(params=n_params, steps=RESILIENT_STEPS,
+                ckpt_every=RESILIENT_CKPT_EVERY, fault_at=RESILIENT_FAULT_AT,
+                clean_s=ref_wall, faulty_s=wall, restores=rep.restores,
+                steps_run=replayed, max_rel_loss_diff=rel,
+                final_state_bit_equal=same_state)
+
+
+def repair_on_card():
+    """Under grad, flash attention on CUDA inputs that require grad raises
+    (the kernel has no backward pass) and launches nothing."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q = randn(gen, (1, 128, 16, 128), torch.bfloat16).requires_grad_(True)
+    k = randn(gen, (1, 128, 8, 128), torch.bfloat16)
+    before = flash_ops.launches
+    try:
+        sdpa(q, k, k, causal=True, impl="kernel")
+    except ValueError as exc:
+        check("attn_impl='plain'" in str(exc), f"the message says how to "
+                                               f"train: {exc}")
+    else:
+        check(False, "sdpa(impl='kernel') under grad raises")
+    check(flash_ops.launches == before, "the refused call launched nothing")
+    return True
 
 
 def main() -> int:
@@ -617,6 +879,26 @@ def main() -> int:
           f"prefill's {len(prefill_rows)} kernel rows ({prefill_launches} "
           f"launches per call); cat kernel launches per call: "
           f"{sorted(count for count, _ in cats)}")
+    del model, params, engine, traces, prefill_rows
+    torch.cuda.empty_cache()
+
+    # training runs the plain paths, as the reference's does: no kernel of
+    # the port has a backward pass, so none may launch in these phases
+    flash_ops.launches = rms_ops.launches = 0
+    ssd_ops.intra_launches = ssd_ops.inter_launches = 0
+    train, model, state0, batch = train_main_path()
+    print("the memory knobs (qwen3-0.6b bf16, 8 x 512, from one state):")
+    train["knobs"] = train_knobs(model, state0, batch)
+    del model, state0, batch
+    torch.cuda.empty_cache()
+    train["resilient"] = train_resilient()
+    got = (flash_ops.launches, rms_ops.launches, ssd_ops.intra_launches,
+           ssd_ops.inter_launches)
+    check(got == (0, 0, 0, 0), f"no kernel launched while training, got "
+                               f"{got}")
+    train["kernel_launches"] = 0
+    train["kernel_refuses_autograd"] = repair_on_card()
+    print("flash attention under grad on the card: refused, no launch")
 
     kernels = [
         dict(name="flash_attention", route="cuda mma.sync bf16 + scalar fp32",
@@ -659,6 +941,7 @@ def main() -> int:
     kernels[2]["cumsum_ms"] = ssd_rows[0][0]["cumsum_ms"]
     kernels[3]["fp32"] = {k: ssd_rows[1][1][k] for k in keys}
     kernels[3]["recurrence_ms"] = ssd_rows[0][1]["recurrence_ms"]
+    print(json.dumps({"training": train}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

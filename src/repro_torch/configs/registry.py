@@ -2,7 +2,8 @@
 
 The dense decoder and hybrid (zamba2) families are ported so far.
 ``get_config(id)`` returns the full published config;
-``reduced_config(id)`` a tiny same-family fp32 config for CPU tests. The values are the reference
+``reduced_config(id)`` a tiny same-family fp32 config for CPU tests, with
+no rematerialisation. The values are the reference
 registry's, so configs compare field by field.
 """
 from __future__ import annotations
@@ -41,7 +42,7 @@ def reduced_config(name: str, **overrides) -> ModelConfig:
     cfg = get_config(name)
     r = dict(d_model=128, n_heads=4, kv_heads=min(cfg.kv_heads, 4),
              head_dim=32, d_ff=256, vocab=512, vocab_pad=64, n_layers=4,
-             dtype="float32")
+             dtype="float32", remat="none")
     if cfg.ssm is not None:
         r["ssm"] = SSMConfig(state=16, head_dim=32, expand=2, conv_kernel=4,
                              chunk=32)

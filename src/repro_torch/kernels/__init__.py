@@ -14,4 +14,23 @@ launches the kernel or raises. Each ``ops`` module counts its kernels'
 launches (``launches``; ``intra_launches`` and ``inter_launches`` for
 the SSD scan). Nothing is built or imported from Triton
 until a kernel is first launched.
+
+No kernel has a backward pass (nor has any Pallas kernel of the
+reference), so every ``ops`` entry point refuses a call that autograd
+would record, on either device: a kernel's output carries no
+``grad_fn``, and the gradient would silently stop at it.
 """
+import torch
+
+#: why a kernel entry point refuses autograd, and what to train with
+NO_BACKWARD = ("the port's kernels have no backward pass (nor do the "
+               "reference's Pallas kernels): train with attn_impl='plain' "
+               "and use_ssm_kernel=False")
+
+
+def refuse_autograd(name: str, *tensors) -> None:
+    """Raise ``ValueError`` if grad mode is on and any of ``tensors``
+    requires grad; ``None`` entries are skipped."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise ValueError(f"{name}: {NO_BACKWARD}")

@@ -3,6 +3,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import refuse_autograd
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -16,9 +17,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q: (b, sq, h, d); k/v: (b, skv, hkv, d); returns (b, sq, h, d).
     A CUDA tensor goes through the CUDA kernel (or the call raises); a
-    CPU tensor through the plain version.
+    CPU tensor through the plain version. Refuses autograd (no backward).
     """
     global launches
+    refuse_autograd("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal)
     out = flash_attention_cuda(q, k, v, causal=causal)

@@ -3,6 +3,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import refuse_autograd
 from repro_torch.kernels.rmsnorm.kernel import fused_rmsnorm_cuda
 from repro_torch.kernels.rmsnorm.ref import fused_rmsnorm_ref
 
@@ -15,9 +16,10 @@ def fused_rmsnorm(x: torch.Tensor, residual: torch.Tensor, w: torch.Tensor,
     """Fused (x + residual) -> RMSNorm. Returns (normed, new_residual).
 
     A CUDA tensor goes through the Triton kernel (or the call raises); a
-    CPU tensor through the plain version.
+    CPU tensor through the plain version. Refuses autograd (no backward).
     """
     global launches
+    refuse_autograd("fused_rmsnorm", x, residual, w)
     if x.device.type == "cpu":
         return fused_rmsnorm_ref(x, residual, w, eps=eps)
     shape = x.shape

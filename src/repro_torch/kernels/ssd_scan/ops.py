@@ -7,6 +7,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import refuse_autograd
 from repro_torch.kernels.ssd_scan.kernel import ssd_inter_cuda, ssd_intra_cuda
 from repro_torch.kernels.ssd_scan.ref import ssd_inter_scan_ref, ssd_intra_ref
 from repro_torch.models.mamba2 import chunk_len
@@ -20,8 +21,10 @@ def ssd_intra(xh, bm, cm, log_a, dt):
     """The intra-chunk pass with the chunk cumsum folded in: returns
     (y_intra, S, chunk decay, cum). The CUDA kernel for a CUDA tensor (or
     the call raises); for a CPU tensor, ``torch.cumsum`` and the plain
-    version, which takes ``cum`` as the Pallas kernel does."""
+    version, which takes ``cum`` as the Pallas kernel does. Refuses
+    autograd (no backward)."""
     global intra_launches
+    refuse_autograd("ssd_intra", xh, bm, cm, log_a, dt)
     if xh.device.type == "cpu":
         cum = torch.cumsum(log_a, dim=2)
         return (*ssd_intra_ref(xh, bm, cm, cum, dt), cum)
@@ -33,8 +36,9 @@ def ssd_intra(xh, bm, cm, log_a, dt):
 def ssd_inter(cm, cum, s_chunk, chunk_decay, y_intra, out_dtype, h0=None):
     """The inter-chunk pass with the chunk recurrence folded in: returns
     (y, the last state). Dispatched as :func:`ssd_intra`; for a CPU
-    tensor, ``chunk_recurrence`` and the plain pass."""
+    tensor, ``chunk_recurrence`` and the plain pass. Refuses autograd."""
     global inter_launches
+    refuse_autograd("ssd_inter", cm, cum, s_chunk, chunk_decay, y_intra, h0)
     if cm.device.type == "cpu":
         return ssd_inter_scan_ref(cm, cum, s_chunk, chunk_decay, y_intra,
                                   out_dtype, h0)
@@ -54,8 +58,10 @@ def ssd_scan(xh: torch.Tensor, b_mat: torch.Tensor, c_mat: torch.Tensor,
     Returns (y (b, s, h, p) in xh's type, final state (b, h, n, p) fp32).
     The chunk recurrence from ``h0`` (zeros if None), which the reference
     runs in a ``lax.scan`` between its kernels, runs inside the inter
-    pass: the states entering each chunk are never stored.
+    pass: the states entering each chunk are never stored. Refuses
+    autograd (no backward).
     """
+    refuse_autograd("ssd_scan", xh, b_mat, c_mat, log_a, dt, h0)
     bsz, s, h, p = xh.shape
     n = b_mat.shape[-1]
     q = chunk_len(s, chunk)

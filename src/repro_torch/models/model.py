@@ -9,7 +9,8 @@ One config schema; two families are ported so far:
 Entry points, as in the reference:
 
   ``forward``      full-sequence logits
-  ``loss``         next-token CE with fp32 softmax
+  ``loss``         next-token CE with fp32 softmax; while grad is on, each
+                   layer is rematerialised as ``cfg.remat`` says
   ``prefill``      full-sequence pass that also emits the decode cache
   ``decode_step``  one-token step against the cache
 
@@ -20,11 +21,14 @@ stack, so the bridge from the reference is a plain tree map.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import mamba2 as m2
@@ -38,7 +42,7 @@ from repro_torch.models.transformer import (BLOCK_CACHE_AXES, BlockConfig,
                                             make_decoder_block,
                                             prefill_decoder_block,
                                             stack_params, tree_leaves,
-                                            tree_map)
+                                            tree_map, unstack_params)
 
 Tree = Dict[str, object]
 
@@ -67,6 +71,7 @@ class ModelConfig:
     attn_impl: str = "plain"         # plain | kernel
     use_ssm_kernel: bool = False     # hybrid: SSD scan through its kernels
     vocab_pad: int = 256
+    remat: str = "dots"              # none | dots | full
     sub_quadratic: bool = False      # can serve long_500k
     kv_cache_quant: bool = False     # int8 KV cache: not ported yet
 
@@ -95,6 +100,34 @@ class ModelConfig:
         """Total parameter count, from shapes on the meta device."""
         params = Model(self, device="meta").init()
         return sum(math.prod(p.shape) for p in tree_leaves(params))
+
+
+REMAT = ("none", "dots", "full")
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``"dots"``: keep the outputs of 2-D
+    matmuls (the projections, ``aten.mm``) and recompute the rest,
+    attention's batched products (``aten.bmm``) included, as the
+    reference's ``checkpoint_dots_with_no_batch_dims`` does."""
+    return (CheckpointPolicy.MUST_SAVE if op == torch.ops.aten.mm.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _maybe_remat(fn: Callable, remat: str) -> Callable:
+    """``fn`` wrapped for rematerialisation while grad is on: ``"full"``
+    saves nothing, ``"dots"`` saves the projections (``_save_dots``).
+    With grad off (serving) ``fn`` runs as it is."""
+    if remat not in REMAT:
+        raise ValueError(f"unknown remat policy {remat!r}")
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    return functools.partial(
+        checkpoint, fn, use_reentrant=False,
+        context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                     _save_dots))
 
 
 class Model:
@@ -163,10 +196,11 @@ class Model:
     def _decoder_forward(self, params: Tree, x: torch.Tensor):
         cfg = self.cfg
         bcfg = cfg.block_cfg()
+        block = _maybe_remat(
+            lambda lp, h: apply_decoder_block(lp, h, bcfg), cfg.remat)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for i in range(cfg.n_layers):
-            x, a = apply_decoder_block(layer_slice(params["layers"], i), x,
-                                       bcfg)
+        for lp in unstack_params(params["layers"], cfg.n_layers):
+            x, a = block(lp, x)
             aux = aux + a
         return apply_norm(params["final_norm"], x, cfg.norm), aux
 
@@ -184,13 +218,19 @@ class Model:
     def _hybrid_forward(self, params: Tree, x: torch.Tensor):
         cfg = self.cfg
         sb_cfg = self._shared_cfg()
-        for i, flag in enumerate(self._shared_flags()):
-            lp = layer_slice(params["layers"], i)
-            hn = apply_norm(lp["norm"], x, cfg.norm)
-            x = x + m2.apply_mamba2(lp["mamba"], hn, cfg.ssm,
+
+        def body(lp, h, flag):
+            hn = apply_norm(lp["norm"], h, cfg.norm)
+            h = h + m2.apply_mamba2(lp["mamba"], hn, cfg.ssm,
                                     use_kernel=cfg.use_ssm_kernel)
             if flag:
-                x, _ = apply_decoder_block(params["shared"], x, sb_cfg)
+                h, _ = apply_decoder_block(params["shared"], h, sb_cfg)
+            return h
+
+        body = _maybe_remat(body, cfg.remat)
+        for lp, flag in zip(unstack_params(params["layers"], cfg.n_layers),
+                            self._shared_flags()):
+            x = body(lp, x, bool(flag))
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return apply_norm(params["final_norm"], x, cfg.norm), aux
 

@@ -70,6 +70,16 @@ def layer_slice(tree: Tree, i: int) -> Tree:
     return tree_map(lambda x: x[i], tree)
 
 
+def unstack_params(tree: Tree, n: int) -> List[Tree]:
+    """The ``n`` per-layer trees of a stacked tree, as views. Under
+    autograd each leaf's gradient comes back through one ``unbind``,
+    whose backward stacks the layers' gradients once; indexing each layer
+    (:func:`layer_slice`) would give every layer a zero-filled gradient
+    of the whole stack to add up, n times the stack's size in traffic."""
+    parts = tree_map(torch.unbind, tree)
+    return [tree_map(lambda ts: ts[i], parts) for i in range(n)]
+
+
 # --------------------------------------------------------------------------
 # standard decoder block (attention + MLP)
 # --------------------------------------------------------------------------

@@ -1,0 +1,179 @@
+"""Atomic checkpointing in the reference's on-disk format (counterpart
+of ``repro.training.checkpoint``).
+
+Layout: ``<dir>/step_<k>/`` holding ``manifest.json`` (leaf paths,
+shapes, dtypes, step metadata) and ``shard_<i>.npz`` chunks. Writes go
+to ``step_<k>.tmp`` and are ``os.replace``d into place, and the manifest
+is written last, so a crash mid-save never corrupts the latest
+checkpoint: restore picks the highest *complete* step.
+
+Leaf paths are spelled as ``jax.tree_util.keystr`` spells them
+(``['params']['layers']['wq']``), in its sorted-key order, so either
+package reads the other's files. A bfloat16 leaf is stored as the
+reference stores it: its raw 2-byte words under the ``.npy`` descr
+``<V2``, with ``"dtype": "bfloat16"`` in the manifest. Restore rebuilds
+it from those words (viewed as int16, then as ``torch.bfloat16``),
+never by a numeric cast of the raw bits. (The reference itself cannot
+restore such a leaf: numpy has no cast from ``V2``.)
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import zipfile
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+Tree = Dict[str, object]
+
+_MANIFEST = "manifest.json"
+#: max elements per npz shard (~512 MB of fp32)
+_SHARD_ELEMS = 128 * 1024 * 1024
+#: the .npy descr numpy writes for an ml_dtypes bfloat16 array
+_BF16_DESCR = "<V2"
+
+
+def _flatten_with_paths(tree, prefix: str = "") -> List[Tuple[str, object]]:
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree)
+                for leaf in _flatten_with_paths(tree[k], f"{prefix}[{k!r}]")]
+    return [(prefix, tree)]
+
+
+def _host_array(leaf: torch.Tensor) -> Tuple[np.ndarray, str]:
+    """(host array, manifest dtype); a bf16 tensor as its raw int16 words."""
+    t = leaf.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy(), "bfloat16"
+    arr = t.numpy()
+    return arr, str(arr.dtype)
+
+
+def _write_npz(path: str, shard: Dict[str, Tuple[np.ndarray, str]]) -> None:
+    """``np.savez``'s zip layout, with bf16 words under the ``<V2`` descr."""
+    with zipfile.ZipFile(path, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, (arr, dtype) in shard.items():
+            with zf.open(key + ".npy", "w", force_zip64=True) as f:
+                if dtype == "bfloat16":
+                    np.lib.format.write_array_header_1_0(
+                        f, {"descr": _BF16_DESCR, "fortran_order": False,
+                            "shape": arr.shape})
+                    f.write(arr.tobytes())
+                else:
+                    np.lib.format.write_array(f, arr, allow_pickle=False)
+
+
+def save_checkpoint(directory: str, step: int, state: Tree,
+                    extra: Optional[Dict] = None, keep: int = 3) -> str:
+    """Atomically write ``state`` under ``directory/step_<step>``."""
+    os.makedirs(directory, exist_ok=True)
+    final = os.path.join(directory, f"step_{step:08d}")
+    tmp = final + ".tmp"
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
+
+    manifest = {"step": step, "extra": extra or {}, "leaves": [], "shards": 0}
+    shard: Dict[str, Tuple[np.ndarray, str]] = {}
+    shard_elems = 0
+    shard_idx = 0
+
+    def flush():
+        nonlocal shard, shard_elems, shard_idx
+        if shard:
+            _write_npz(os.path.join(tmp, f"shard_{shard_idx}.npz"), shard)
+            shard_idx += 1
+            shard, shard_elems = {}, 0
+
+    for i, (path, leaf) in enumerate(_flatten_with_paths(state)):
+        arr, dtype = _host_array(leaf)
+        key = f"leaf_{i}"
+        manifest["leaves"].append({"path": path, "key": key,
+                                   "shard": shard_idx,
+                                   "shape": list(arr.shape), "dtype": dtype})
+        shard[key] = (arr, dtype)
+        shard_elems += int(arr.size)
+        if shard_elems >= _SHARD_ELEMS:
+            flush()
+    flush()
+    manifest["shards"] = shard_idx
+    # manifest last => its presence marks the checkpoint complete
+    with open(os.path.join(tmp, _MANIFEST), "w") as f:
+        json.dump(manifest, f)
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.replace(tmp, final)
+    _cleanup(directory, keep)
+    return final
+
+
+def _cleanup(directory: str, keep: int) -> None:
+    steps = sorted(_complete_steps(directory))
+    for s in steps[:-keep]:
+        shutil.rmtree(os.path.join(directory, f"step_{s:08d}"),
+                      ignore_errors=True)
+
+
+def _complete_steps(directory: str) -> List[int]:
+    out = []
+    if not os.path.isdir(directory):
+        return out
+    for name in os.listdir(directory):
+        if name.startswith("step_") and not name.endswith(".tmp"):
+            if os.path.exists(os.path.join(directory, name, _MANIFEST)):
+                out.append(int(name[len("step_"):]))
+    return out
+
+
+def latest_step(directory: str) -> Optional[int]:
+    steps = _complete_steps(directory)
+    return max(steps) if steps else None
+
+
+def restore_checkpoint(directory: str, like: Tree,
+                       step: Optional[int] = None) -> Tuple[Tree, int, Dict]:
+    """Restore into the structure of ``like`` (a tree of tensors): each
+    leaf takes the type and the device of its ``like`` leaf. Returns
+    (state, step, extra)."""
+    if step is None:
+        step = latest_step(directory)
+        if step is None:
+            raise FileNotFoundError(f"no complete checkpoint in {directory}")
+    path = os.path.join(directory, f"step_{step:08d}")
+    with open(os.path.join(path, _MANIFEST)) as f:
+        manifest = json.load(f)
+    by_path = {e["path"]: e for e in manifest["leaves"]}
+    shards: Dict[int, object] = {}
+
+    def load(kpath: str, leaf: torch.Tensor) -> torch.Tensor:
+        entry = by_path.get(kpath)
+        if entry is None:
+            raise KeyError(f"checkpoint missing leaf {kpath}")
+        si = entry["shard"]
+        if si not in shards:
+            shards[si] = np.load(os.path.join(path, f"shard_{si}.npz"))
+        arr = shards[si][entry["key"]]
+        if tuple(arr.shape) != tuple(leaf.shape):
+            raise ValueError(f"shape mismatch at {kpath}: "
+                             f"{arr.shape} vs {tuple(leaf.shape)}")
+        if entry["dtype"] == "bfloat16":
+            t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(arr)
+        return t.to(device=leaf.device, dtype=leaf.dtype)
+
+    def rebuild(tree, prefix: str = ""):
+        if isinstance(tree, dict):
+            return {k: rebuild(v, f"{prefix}[{k!r}]") for k, v in tree.items()}
+        return load(prefix, tree)
+
+    try:
+        state = rebuild(like)
+    finally:
+        for z in shards.values():
+            z.close()
+    return state, step, manifest.get("extra", {})

@@ -1,0 +1,46 @@
+"""Deterministic synthetic data with restart-exact skipping (counterpart
+of ``repro.training.data``).
+
+Each (seed, step, host) triple keys its own numpy generator, so
+
+  * every host draws only its own shard of the global batch,
+  * restarting from step k reproduces batch k exactly: a checkpoint
+    stores only ``step``, no reader state,
+  * nothing is read from disk.
+
+The stream is not the reference's (``jax.random``); parity tests feed
+both packages the reference's batches.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class SyntheticDataset:
+    vocab: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    #: where the batches land; None is the CUDA card, as for the model
+    device: DeviceLike = None
+
+    def batch_at(self, step: int, *, host_index: int = 0,
+                 host_count: int = 1) -> Dict[str, torch.Tensor]:
+        """This host's shard of the global batch of ``step``: int64
+        ``tokens`` and ``labels`` (the tokens shifted by one)."""
+        if self.global_batch % host_count:
+            raise ValueError(f"global batch {self.global_batch} does not "
+                             f"split over {host_count} hosts")
+        b = self.global_batch // host_count
+        rng = np.random.default_rng((self.seed, step, host_index))
+        tokens = torch.from_numpy(
+            rng.integers(0, self.vocab, (b, self.seq_len + 1)))
+        tokens = tokens.to(resolve_device(self.device))
+        return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}

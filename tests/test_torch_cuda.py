@@ -276,3 +276,90 @@ def test_ssd_kernels_reject_unsupported_shapes(cuda, b, c, q, h, p, n):
         ssd_ops.ssd_inter(bm, cum, torch.zeros((b, c, h, n, p), device=cuda),
                           torch.zeros((b, c, h), device=cuda), xh,
                           torch.float32)
+
+
+# --------------------------------------------------------------------------
+# no kernel has a backward pass: the entry points refuse autograd
+# --------------------------------------------------------------------------
+
+def _refused_calls(cuda):
+    """Each kernel entry point on CUDA inputs, one of which requires grad;
+    returns {name: (call, launch counter)}."""
+    rng = np.random.default_rng(9)
+    q = _normal(rng, (1, 64, 4, 64), torch.bfloat16, cuda)
+    x, r = (_normal(rng, (4, 256), torch.bfloat16, cuda) for _ in range(2))
+    w = _normal(rng, (256,), torch.bfloat16, cuda)
+    b, c, qn, h, p, n = 1, 2, 64, 4, 64, 64
+    xh = _normal(rng, (b, c * qn, h, p), torch.float32, cuda)
+    bm, cm = (_normal(rng, (b, c * qn, n), torch.float32, cuda)
+              for _ in range(2))
+    dt = torch.nn.functional.softplus(
+        _normal(rng, (b, c * qn, h), torch.float32, cuda))
+    log_a = -dt * 0.5
+    chunk = lambda t: t.reshape(b, c, qn, *t.shape[2:])
+    with torch.no_grad():
+        y_intra, s_chunk, dec, cum = ssd_ops.ssd_intra(
+            chunk(xh), chunk(bm), chunk(cm), chunk(log_a), chunk(dt))
+    for t in (q, w, xh, s_chunk):
+        t.requires_grad_(True)
+    return {
+        "flash_attention": (lambda: flash_ops.flash_attention(q, q, q),
+                            lambda: flash_ops.launches),
+        "fused_rmsnorm": (lambda: rms_ops.fused_rmsnorm(x, r, w),
+                          lambda: rms_ops.launches),
+        "ssd_scan": (lambda: ssd_ops.ssd_scan(xh, bm, cm, log_a, dt,
+                                              chunk=qn),
+                     lambda: ssd_ops.intra_launches),
+        "ssd_intra": (lambda: ssd_ops.ssd_intra(
+            chunk(xh), chunk(bm), chunk(cm), chunk(log_a), chunk(dt)),
+                      lambda: ssd_ops.intra_launches),
+        "ssd_inter": (lambda: ssd_ops.ssd_inter(
+            chunk(cm), cum, s_chunk, dec, y_intra, torch.float32),
+                      lambda: ssd_ops.inter_launches)}
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "fused_rmsnorm",
+                                  "ssd_scan", "ssd_intra", "ssd_inter"])
+def test_kernel_entry_points_refuse_autograd(cuda, name):
+    """Under grad, with an input that requires grad, the call raises and
+    launches nothing; under no_grad the same call launches its kernel."""
+    call, count = _refused_calls(cuda)[name]
+    before = count()
+    with pytest.raises(ValueError, match="use_ssm_kernel=False"):
+        call()
+    assert count() == before
+    with torch.no_grad():
+        call()
+    torch.cuda.synchronize()
+    assert count() == before + 1
+
+
+def test_train_step_on_the_card_matches_cpu(cuda):
+    """One reduced qwen3-0.6b step (fp32, remat "dots") on the card and on
+    the CPU from the same state and batch: loss and grad_norm at the
+    reference's gradient tolerance, params within 2 lr (+1e-6), as Adam's
+    first step moves every element by about +-lr."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import tree_leaves, tree_map
+    from repro_torch.training import (AdamWConfig, SyntheticDataset,
+                                      adamw_init, make_train_step)
+    lr = 1e-3
+    out = {}
+    for device in ("cpu", cuda):
+        model = Model(reduced_config("qwen3-0.6b", n_layers=2,
+                                     remat="dots"), device=device)
+        params = tree_map(lambda t: t.to(device),
+                          Model(model.cfg, device="cpu").init(seed=0))
+        ds = SyntheticDataset(vocab=model.cfg.vocab, seq_len=16,
+                              global_batch=8, device=device)
+        step = make_train_step(model, AdamWConfig(lr=lr))
+        out[str(device)] = step(adamw_init(params), ds.batch_at(0))
+    (cpu_state, cpu_m), (gpu_state, gpu_m) = out["cpu"], out["cuda"]
+    assert gpu_state["step"].is_cuda and int(gpu_state["step"]) == 1
+    for k in ("loss", "grad_norm", "lr"):
+        np.testing.assert_allclose(float(gpu_m[k]), float(cpu_m[k]),
+                                   atol=1e-5, rtol=1e-4)
+    for a, b in zip(tree_leaves(gpu_state["params"]),
+                    tree_leaves(cpu_state["params"])):
+        assert float((a.cpu() - b).abs().max()) <= 2 * lr + 1e-6
