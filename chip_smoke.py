@@ -9,19 +9,28 @@ Phases, in order; any failure exits non-zero:
      each kernel held against its plain version on the card at the main
      paths' shapes and timed beside its plain version, one PyTorch
      library call (where one computes the same function) and its bound:
-     flash attention (bf16 tensor-core and fp32 scalar routes), the
-     fused RMSNorm, the two SSD-scan passes on both routes (the intra
-     pass, which also takes the chunk cumsum, and the inter pass, which
-     also runs the chunk recurrence) and the composed SSD scan;
-  3. reduced qwen3-0.6b and reduced zamba2-1.2b in fp32, the kernel
-     paths against the plain ones;
+     flash attention (bf16 tensor-core and fp32 scalar routes, at the
+     dense, hybrid and MoE prefill shapes), the fused RMSNorm, the two
+     SSD-scan passes on both routes (the intra pass, which also takes the
+     chunk cumsum, and the inter pass, which also runs the chunk
+     recurrence) and the composed SSD scan;
+  3. reduced qwen3-0.6b, zamba2-1.2b, qwen2-moe-a2.7b and
+     granite-moe-3b-a800m in fp32, the kernel paths against the plain
+     ones; the reduced MoE models' logits on the card against the CPU's,
+     and the capacity cut between two equal sequences taking the same
+     tokens on both;
   4. the main paths, each with the launch counts set to 0 just before
      and read just after: full-width, full-depth qwen3-0.6b in bf16 on
-     random weights serving 8 requests through ServeEngine; the fused
-     RMSNorm's own entry point; full-width, full-depth zamba2-1.2b in
-     bf16 serving 8 requests (every Mamba2 prefill through the two SSD
-     kernels, the shared attention block through flash attention), then
-     one full-width zamba2 forward, the reference's own kernel route;
+     random weights serving 8 requests through ServeEngine, then its int8
+     KV cache against the bf16 one; the fused RMSNorm's own entry point;
+     full-width, full-depth zamba2-1.2b in bf16 serving 8 requests (every
+     Mamba2 prefill through the two SSD kernels, the shared attention
+     block through flash attention), then one full-width zamba2 forward,
+     the reference's own kernel route; full-width, full-depth
+     qwen2-moe-a2.7b and then granite-moe-3b-a800m in bf16 serving 8
+     requests each, and granite's int8 KV cache. Each dense or MoE model
+     also gives its parameter count, its peak memory and a repeated
+     512-token prefill, equal bit for bit;
   5. host wall time against device-busy time and kernel launches per
      call (torch.profiler) for one decode step and one prefill of each
      served model, and neither torch's cumsum nor the chunk recurrence's
@@ -34,10 +43,12 @@ Phases, in order; any failure exits non-zero:
      microbatches 2 against 1) from one state, each step's loss and grad
      norm held to the others'; the resilient loop at full width and 2
      layers, once without a fault (no failure, no restore) and once with
-     one injected after a checkpoint (one restore, the same losses); and
+     one injected after a checkpoint (one restore, the same losses);
+     granite-moe-3b-a800m at full width and 4 layers, whose loss must
+     fall and whose gradients must repeat bit for bit from one state; and
      flash attention refusing autograd on the card;
-  7. one JSON line of training numbers, one of per-kernel numbers and,
-     last, the device line.
+  7. one JSON line of serving numbers (memory, int8), one of training
+     numbers, one of per-kernel numbers and, last, the device line.
 """
 from __future__ import annotations
 
@@ -70,9 +81,10 @@ from repro_torch.kernels.ssd_scan.kernel import ssd_inter_cuda, ssd_intra_cuda
 from repro_torch.kernels.ssd_scan.ref import (ssd_inter_scan_ref,
                                               ssd_intra_ref, ssd_scan_ref)
 from repro_torch.models.attention import sdpa
+from repro_torch.models import moe
 from repro_torch.models.mamba2 import chunk_recurrence
 from repro_torch.models.model import Model
-from repro_torch.models.transformer import tree_leaves
+from repro_torch.models.transformer import layer_slice, tree_leaves, tree_map
 from repro_torch.serving import RequestQueue, ServeEngine
 from repro_torch.training import (AdamWConfig, SyntheticDataset, adamw_init,
                                   make_train_step)
@@ -114,6 +126,15 @@ REMAT_TOL = dict(loss=1e-5, grad_norm=1e-4)
 MICROBATCH_TOL = dict(loss=1e-3, grad_norm=1e-2)
 #: the resilient loop: steps, checkpoint cadence, the step that faults
 RESILIENT_STEPS, RESILIENT_CKPT_EVERY, RESILIENT_FAULT_AT = 6, 3, 4
+#: MoE training: granite-moe-3b-a800m at full width, depth cut to these
+#: layers (so that its AdamW state stays small), batch x sequence, steps
+MOE_ARCHS = ("qwen2-moe-a2.7b", "granite-moe-3b-a800m")
+MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = \
+    4, 8, 256, 10
+#: the int8 KV cache: prompt, teacher-forced decode steps, and the bound
+#: on the largest logit error over the largest logit
+#: (tests/test_perf_features.py::test_int8_kv_cache_decode_accuracy)
+INT8_PROMPT, INT8_STEPS, INT8_BOUND = 300, 16, 0.05
 
 
 def check(ok: bool, what: str) -> None:
@@ -369,42 +390,62 @@ def hybrid_parity():
     return err_fwd, err_pre
 
 
-def serve_main_path():
-    """Full qwen3-0.6b serving 8 requests; returns (model, params, engine,
-    results, flash launches, prompt lengths, wall seconds)."""
-    cfg = get_config("qwen3-0.6b", attn_impl="kernel")
-    model = Model(cfg)
-    params = model.init(seed=0)
-    engine = ServeEngine(model, params, n_slots=4, max_len=1024)
-    rng = np.random.default_rng(0)
-    lengths = [int(n) for n in rng.integers(16, 513, size=8)]
-    check(any(n % 64 for n in lengths), "a ragged prompt length")
-    queue = RequestQueue()
-    for n in lengths:
-        queue.submit(rng.integers(0, cfg.vocab, size=n), max_new_tokens=32)
-    torch.cuda.synchronize()
+def split_tie(routing, tok_ec) -> bool:
+    """Whether some expert's capacity cut falls among equal nonzero routing
+    values: it keeps a token and leaves out another of the same value."""
+    for e in range(tok_ec.shape[0]):
+        last = routing[tok_ec[e, -1], e]
+        if last > 0 and int((routing[:, e] == last).sum()) > \
+                int((routing[tok_ec[e], e] == last).sum()):
+            return True
+    return False
+
+
+def moe_parity(arch):
+    """Reduced ``arch`` in fp32, weights drawn on the CPU: on the card the
+    kernel path against the plain one (one flash launch per layer), the
+    card's plain logits against the CPU's, and global dispatch over a
+    batch of two equal sequences of 24 tokens (capacity 15, odd, so the
+    cut falls between the two of a pair) taking the same tokens on the
+    card as on the CPU. Returns the largest errors (kernel, CPU)."""
+    cfg = reduced_config(arch)
+    cpu = Model(cfg, device="cpu")
+    params_cpu = cpu.init(seed=0)
+    params = tree_map(lambda t: t.to("cuda"), params_cpu)
+    plain = Model(cfg)
+    kernel = Model(reduced_config(arch, attn_impl="kernel"))
+    gen = torch.Generator().manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab, (2, 200), generator=gen)
+    want, want_aux = plain.forward(params, {"tokens": tokens.cuda()})
     flash_ops.launches = 0
-    t0 = time.perf_counter()
-    results = engine.run(queue)
-    wall = time.perf_counter() - t0
-    launches = flash_ops.launches
-    check(len(results) == 8, f"8 requests finish, got {len(results)}")
-    for r in results:
-        check(len(r.tokens) == 32, f"request {r.uid}: 32 tokens")
-        check(all(0 <= t < cfg.vocab for t in r.tokens),
-              f"request {r.uid}: tokens in [0, vocab)")
-    for name, t in engine.cache["layers"].items():
-        check(bool(torch.isfinite(t).all()), f"finite KV cache {name}")
-    check(launches == cfg.n_layers * engine.n_prefills,
-          f"flash launches {launches} == {cfg.n_layers} x "
-          f"{engine.n_prefills} prefills")
-    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, size=300),
-                             device="cuda")[None]
-    logits, _ = model.prefill(params, {"tokens": prompt}, max_len=1024)
-    check(logits.shape == (1, 1, cfg.padded_vocab), "prefill logits shape")
-    check(bool(torch.isfinite(logits[..., :cfg.vocab]).all()),
-          "finite prefill logits")
-    return model, params, engine, results, launches, lengths, wall
+    got, aux = kernel.forward(params, {"tokens": tokens.cuda()})
+    torch.cuda.synchronize()
+    check(flash_ops.launches == cfg.n_layers,
+          f"{arch}: {cfg.n_layers} flash launches in the reduced forward, "
+          f"got {flash_ops.launches}")
+    err_kernel = max(max_err(got, want, **MODEL_TOL,
+                             what=f"reduced {arch} kernel logits"),
+                     max_err(aux, want_aux, **MODEL_TOL,
+                             what=f"reduced {arch} kernel aux"))
+    on_cpu, cpu_aux = cpu.forward(params_cpu, {"tokens": tokens})
+    err_cpu = max(max_err(want.cpu(), on_cpu, **MODEL_TOL,
+                          what=f"reduced {arch} logits, card against CPU"),
+                  max_err(want_aux.cpu(), cpu_aux, **MODEL_TOL,
+                          what=f"reduced {arch} aux, card against CPU"))
+    mp = layer_slice(params_cpu["layers"], 0)["moe"]
+    x = torch.randn((1, 24, cfg.d_model), generator=gen).repeat(2, 1, 1)
+    xf = x.reshape(-1, cfg.d_model)
+    tok = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev), mp)
+        tok[dev] = moe._dispatch_global(p, xf.to(dev), cfg.moe)[3].cpu()
+    routing = moe._routing(mp, xf, cfg.moe)[0]
+    check(split_tie(routing, tok["cpu"]), f"{arch}: the capacity cut falls "
+                                          f"among equal routing values")
+    check(torch.equal(tok["cuda"], tok["cpu"]),
+          f"{arch}: the card takes the same tokens at the capacity cut as "
+          f"the CPU")
+    return err_kernel, err_cpu
 
 
 def serve_hybrid():
@@ -461,6 +502,121 @@ def serve_hybrid():
           f"forward launches {got} == ({cfg.n_layers}, {cfg.n_layers}, "
           f"{n_apps})")
     return model, params, engine, results, launches, lengths, wall
+
+
+def cache_bytes(cache) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in tree_leaves(cache["layers"]))
+
+
+def serve_decoder(arch):
+    """Full-width, full-depth ``arch`` (dense or MoE) in bf16 on random
+    weights serving 8 requests through ServeEngine, every prefill through
+    flash attention; its parameter count against cfg.n_params(), peak
+    memory after init and after serving, and one 512-token prefill run
+    twice, whose logits and cache must be equal bit for bit. Returns
+    (model, params, engine, results, flash launches while serving, prompt
+    lengths, wall seconds, numbers)."""
+    cfg = get_config(arch, attn_impl="kernel")
+    model = Model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    resident = torch.cuda.memory_allocated()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    check(n_params == cfg.n_params(), f"{arch}: {n_params} parameters == "
+                                      f"cfg.n_params() {cfg.n_params()}")
+    engine = ServeEngine(model, params, n_slots=4, max_len=1024)
+    rng = np.random.default_rng(0)
+    lengths = [int(n) for n in rng.integers(16, 513, size=8)]
+    check(any(n % 64 for n in lengths), "a ragged prompt length")
+    queue = RequestQueue()
+    for n in lengths:
+        queue.submit(rng.integers(0, cfg.vocab, size=n), max_new_tokens=32)
+    torch.cuda.synchronize()
+    flash_ops.launches = 0
+    t0 = time.perf_counter()
+    results = engine.run(queue)
+    wall = time.perf_counter() - t0
+    launches = flash_ops.launches
+    check(len(results) == 8, f"{arch}: 8 requests finish, got {len(results)}")
+    for r in results:
+        check(len(r.tokens) == 32, f"{arch} request {r.uid}: 32 tokens")
+        check(all(0 <= t < cfg.vocab for t in r.tokens),
+              f"{arch} request {r.uid}: tokens in [0, vocab)")
+    for name, t in engine.cache["layers"].items():
+        check(bool(torch.isfinite(t).all()), f"{arch}: finite KV cache {name}")
+    check(launches == cfg.n_layers * engine.n_prefills,
+          f"{arch}: flash launches {launches} == {cfg.n_layers} x "
+          f"{engine.n_prefills} prefills")
+    serve_peak = torch.cuda.max_memory_allocated()
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, size=512),
+                             device="cuda")[None]
+    runs = [model.prefill(params, {"tokens": prompt}, max_len=1024)
+            for _ in range(2)]
+    (l1, c1), (l2, c2) = runs
+    check(l1.shape == (1, 1, cfg.padded_vocab) and
+          bool(torch.isfinite(l1[..., :cfg.vocab]).all()),
+          f"{arch}: finite prefill logits")
+    check(torch.equal(l1, l2) and all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(c1), tree_leaves(c2))),
+          f"{arch}: a repeated 512-token prefill gives equal logits and cache")
+    del runs, c1, c2
+    numbers = dict(params=n_params, params_active=cfg.n_active_params(),
+                   init_s=init_s, init_peak_bytes=init_peak,
+                   resident_bytes=resident, serve_peak_bytes=serve_peak,
+                   repeated_prefill_equal=True)
+    print(f"{arch}: {n_params:,} parameters ({cfg.n_active_params():,} "
+          f"active per token) == cfg.n_params(); init {init_s:.2f} s, peak "
+          f"{init_peak / 2**30:.3f} GiB ({resident / 2**30:.3f} GiB "
+          f"resident); peak while serving {serve_peak / 2**30:.3f} GiB; a "
+          f"repeated 512-token prefill equal bit for bit")
+    return model, params, engine, results, launches, lengths, wall, numbers
+
+
+def int8_against_bf16(model, params):
+    """``model``'s config with kv_cache_quant=True against the bf16 cache
+    on one INT8_PROMPT-token prompt, then INT8_STEPS teacher-forced decode
+    steps: the largest logit error over the largest logit (real vocab
+    columns) must stay under INT8_BOUND. Returns its numbers."""
+    cfg = model.cfg
+    quant = Model(dataclasses.replace(cfg, kv_cache_quant=True))
+    rng = np.random.default_rng(1)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab,
+                                          size=INT8_PROMPT + INT8_STEPS),
+                             device="cuda")[None]
+    max_len = INT8_PROMPT + INT8_STEPS
+    errs, peak = [], []
+
+    def compare(want, got):
+        w, g = want[..., :cfg.vocab].float(), got[..., :cfg.vocab].float()
+        check(bool(torch.isfinite(g).all()), f"{cfg.name}: finite int8 logits")
+        errs.append(float((g - w).abs().max()))
+        peak.append(float(w.abs().max()))
+
+    batch = {"tokens": tokens[:, :INT8_PROMPT]}
+    want, cache = model.prefill(params, batch, max_len=max_len)
+    got, qcache = quant.prefill(params, batch, max_len=max_len)
+    check(qcache["layers"]["k"].dtype == torch.int8, "an int8 cache")
+    ratio = cache_bytes(qcache) / cache_bytes(cache)
+    compare(want, got)
+    for i in range(INT8_PROMPT, max_len):
+        want, cache = model.decode_step(params, cache, tokens[:, i:i + 1])
+        got, qcache = quant.decode_step(params, qcache, tokens[:, i:i + 1])
+        compare(want, got)
+    rel = max(errs) / max(peak)
+    check(rel < INT8_BOUND, f"{cfg.name}: int8 logits within {INT8_BOUND} of "
+                            f"the largest bf16 logit, got {rel:.4f}")
+    print(f"{cfg.name} int8 KV cache: largest logit error over largest logit "
+          f"{rel:.5f} (bound {INT8_BOUND}) over a {INT8_PROMPT}-token prefill "
+          f"and {INT8_STEPS} decode steps; cache {cache_bytes(qcache):,} bytes "
+          f"against {cache_bytes(cache):,} in bf16 ({ratio:.4f})")
+    return dict(rel_err=rel, max_abs_err=max(errs), cache_bytes=cache_bytes(
+        qcache), bf16_cache_bytes=cache_bytes(cache), ratio=ratio)
 
 
 def print_serving(name, engine, results, lengths, wall, launches):
@@ -757,6 +913,56 @@ def train_resilient():
                 final_state_bit_equal=same_state)
 
 
+def train_moe():
+    """granite-moe-3b-a800m at full width and MOE_TRAIN_LAYERS layers in
+    bf16, remat "dots", a global batch of MOE_TRAIN_BATCH x MOE_TRAIN_SEQ:
+    two steps from one state must give gradients equal bit for bit (the
+    dispatch's gather and sum back to tokens use no atomics), then
+    MOE_TRAIN_STEPS steps on one batch, whose loss must fall."""
+    cfg = get_config("granite-moe-3b-a800m", n_layers=MOE_TRAIN_LAYERS,
+                     remat="dots")
+    model = Model(cfg)
+    state0 = adamw_init(model.init(seed=0))
+    n_params = sum(t.numel() for t in tree_leaves(state0["params"]))
+    batch = SyntheticDataset(vocab=cfg.vocab, seq_len=MOE_TRAIN_SEQ,
+                             global_batch=MOE_TRAIN_BATCH, seed=0).batch_at(0)
+    seen = []
+
+    def capture(grads):
+        seen.append(grads)
+        return grads
+
+    step = make_train_step(model, TRAIN_OPT, grad_transform=capture)
+    _, m1 = step(state0, batch)
+    _, m2 = step(state0, batch)
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(seen[0]),
+                                                 tree_leaves(seen[1])))
+    check(same and float(m1["loss"]) == float(m2["loss"]),
+          "granite-moe: two steps from one state give equal gradients")
+    del seen[:]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, losses, _, ms = train_steps(make_train_step(model, TRAIN_OPT),
+                                       state0, batch, MOE_TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    check(losses[-1] < losses[0], f"granite-moe: the loss falls on a fixed "
+                                  f"batch: {losses[0]:.4f} -> {losses[-1]:.4f}")
+    tokens = MOE_TRAIN_BATCH * MOE_TRAIN_SEQ
+    step_ms = sum(ms[1:]) / len(ms[1:])
+    print(f"granite-moe-3b-a800m training, full width, {MOE_TRAIN_LAYERS} "
+          f"layers ({n_params / 1e6:.1f}M params), bf16, remat dots, "
+          f"{MOE_TRAIN_BATCH} x {MOE_TRAIN_SEQ} tokens: gradients of two steps "
+          f"from one state equal bit for bit; step {step_ms:.3f} ms (CUDA "
+          f"events, mean of steps 2-{MOE_TRAIN_STEPS}), "
+          f"{tokens / step_ms * 1e3:.1f} tokens/s, peak memory "
+          f"{peak / 2**30:.3f} GiB; loss {[round(x, 4) for x in losses]}")
+    return dict(arch=cfg.name, layers=MOE_TRAIN_LAYERS, params=n_params,
+                batch=MOE_TRAIN_BATCH, seq=MOE_TRAIN_SEQ, step_ms=step_ms,
+                first_step_ms=ms[0], tokens_per_s=tokens / step_ms * 1e3,
+                peak_bytes=peak, loss_first=losses[0], loss_last=losses[-1],
+                grads_bit_equal=same)
+
+
 def repair_on_card():
     """Under grad, flash attention on CUDA inputs that require grad raises
     (the kernel has no backward pass) and launches nothing."""
@@ -806,6 +1012,10 @@ def main() -> int:
     flash_rows += [check_flash(gen, 1, 512, 16, 1, 64, torch.bfloat16),
                    check_flash(gen, 1, 512, 32, 32, 64, torch.bfloat16),
                    check_flash(gen, 1, 512, 16, 8, 32, torch.bfloat16)]
+    # the MoE prefills: qwen2-moe (16/16, d = 128) and granite (24/8, d = 64)
+    flash_moe = [check_flash(gen, 1, 512, 16, 16, 128, torch.bfloat16),
+                 check_flash(gen, 1, 512, 24, 8, 64, torch.bfloat16)]
+    flash_rows += flash_moe
     flash_f32 = [check_flash(gen, 1, 512, 16, 8, 128, torch.float32),
                  check_flash(gen, 1, 512, 32, 32, 64, torch.float32)]
     print_rows("flash_attention", flash_rows)
@@ -837,11 +1047,19 @@ def main() -> int:
     err_fwd, err_pre = hybrid_parity()
     print(f"reduced zamba2-1.2b fp32, kernels vs plain: forward logits max "
           f"abs err {err_fwd:.3g}, prefill logits and caches {err_pre:.3g}")
+    for arch in MOE_ARCHS:
+        err_kernel, err_cpu = moe_parity(arch)
+        print(f"reduced {arch} fp32: kernel vs plain logits and aux max abs "
+              f"err {err_kernel:.3g}; card vs CPU {err_cpu:.3g}; the capacity "
+              f"cut between two equal sequences takes the same tokens on "
+              f"the card as on the CPU")
 
-    model, params, engine, results, flash_launches, lengths, wall = \
-        serve_main_path()
+    serving = {}
+    (model, params, engine, results, flash_launches, lengths, wall,
+     serving["qwen3-0.6b"]) = serve_decoder("qwen3-0.6b")
     print_serving("qwen3-0.6b", engine, results, lengths, wall,
                   {"flash_attention": flash_launches})
+    serving["int8 qwen3-0.6b"] = int8_against_bf16(model, params)
     rms_launches = rmsnorm_entry_point()
     print("where the time goes (qwen3-0.6b bf16, warm):")
     where_time_goes(model, params, engine, {"flash attention": "flash_fwd"})
@@ -882,6 +1100,21 @@ def main() -> int:
     del model, params, engine, traces, prefill_rows
     torch.cuda.empty_cache()
 
+    moe_launches = {}
+    for arch in MOE_ARCHS:
+        (model, params, engine, results, moe_launches[arch], lengths, wall,
+         serving[arch]) = serve_decoder(arch)
+        print_serving(arch, engine, results, lengths, wall,
+                      {"flash_attention": moe_launches[arch]})
+        if arch == "qwen2-moe-a2.7b":
+            print(f"where the time goes ({arch} bf16, warm):")
+            where_time_goes(model, params, engine,
+                            {"flash attention": "flash_fwd"})
+        else:
+            serving[f"int8 {arch}"] = int8_against_bf16(model, params)
+        del model, params, engine
+        torch.cuda.empty_cache()
+
     # training runs the plain paths, as the reference's does: no kernel of
     # the port has a backward pass, so none may launch in these phases
     flash_ops.launches = rms_ops.launches = 0
@@ -892,6 +1125,7 @@ def main() -> int:
     del model, state0, batch
     torch.cuda.empty_cache()
     train["resilient"] = train_resilient()
+    train["moe"] = train_moe()
     got = (flash_ops.launches, rms_ops.launches, ssd_ops.intra_launches,
            ssd_ops.inter_launches)
     check(got == (0, 0, 0, 0), f"no kernel launched while training, got "
@@ -905,10 +1139,13 @@ def main() -> int:
              source="src/repro_torch/kernels/flash_attention/csrc/"
                     "flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:101",
-             launches=flash_launches + hybrid_launches["flash_attention"],
+             launches=(flash_launches + hybrid_launches["flash_attention"]
+                       + sum(moe_launches.values())),
              launches_by_path={
                  "qwen3-0.6b serving": flash_launches,
-                 "zamba2-1.2b serving": hybrid_launches["flash_attention"]}),
+                 "zamba2-1.2b serving": hybrid_launches["flash_attention"],
+                 **{f"{arch} serving": n
+                    for arch, n in moe_launches.items()}}),
         dict(name="fused_rmsnorm", route="triton",
              source="src/repro_torch/kernels/rmsnorm/kernel.py",
              replaces="src/repro/kernels/rmsnorm/kernel.py:40",
@@ -937,10 +1174,13 @@ def main() -> int:
               f"{PREV_MS[entry['name']]:.5f} ms earlier (constant from "
               f"PERF.md, not measured here)")
     kernels[0]["fp32"] = {k: flash_f32[0][k] for k in keys}
+    kernels[0]["moe_shapes"] = [{k: row[k] for k in keys}
+                                for row in flash_moe]
     kernels[2]["fp32"] = {k: ssd_rows[1][0][k] for k in keys}
     kernels[2]["cumsum_ms"] = ssd_rows[0][0]["cumsum_ms"]
     kernels[3]["fp32"] = {k: ssd_rows[1][1][k] for k in keys}
     kernels[3]["recurrence_ms"] = ssd_rows[0][1]["recurrence_ms"]
+    print(json.dumps({"serving": serving}))
     print(json.dumps({"training": train}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """Architecture registry of the port: ``--arch <id>`` -> ModelConfig.
 
-The dense decoder and hybrid (zamba2) families are ported so far.
+The dense decoder, MoE and hybrid (zamba2) families are ported so far.
 ``get_config(id)`` returns the full published config;
 ``reduced_config(id)`` a tiny same-family fp32 config for CPU tests, with
 no rematerialisation. The values are the reference
@@ -11,19 +11,21 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List
 
-from repro_torch.configs import (olmo_1b, qwen1p5_32b, qwen3_0p6b,
-                                 starcoder2_7b, zamba2_1p2b)
+from repro_torch.configs import (granite_moe_3b_a800m, olmo_1b, qwen1p5_32b,
+                                 qwen2_moe_a2p7b, qwen3_0p6b, starcoder2_7b,
+                                 zamba2_1p2b)
 from repro_torch.models.mamba2 import SSMConfig
 from repro_torch.models.model import ModelConfig
+from repro_torch.models.moe import MoEConfig
 
-_MODULES = [zamba2_1p2b, starcoder2_7b, qwen3_0p6b, qwen1p5_32b, olmo_1b]
+_MODULES = [zamba2_1p2b, qwen2_moe_a2p7b, granite_moe_3b_a800m,
+            starcoder2_7b, qwen3_0p6b, qwen1p5_32b, olmo_1b]
 
 CONFIGS: Dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 ARCH_IDS: List[str] = list(CONFIGS)
 
 #: archs of the reference registry whose families are not ported yet
-NOT_PORTED = ("qwen2-moe-a2.7b", "granite-moe-3b-a800m", "xlstm-350m",
-              "whisper-tiny", "llama-3.2-vision-90b")
+NOT_PORTED = ("xlstm-350m", "whisper-tiny", "llama-3.2-vision-90b")
 
 
 def get_config(name: str, **overrides) -> ModelConfig:
@@ -43,6 +45,12 @@ def reduced_config(name: str, **overrides) -> ModelConfig:
     r = dict(d_model=128, n_heads=4, kv_heads=min(cfg.kv_heads, 4),
              head_dim=32, d_ff=256, vocab=512, vocab_pad=64, n_layers=4,
              dtype="float32", remat="none")
+    if cfg.moe is not None:
+        r["moe"] = MoEConfig(
+            n_experts=8, top_k=2, expert_ff=64,
+            shared_ff=128 if cfg.moe.shared_ff else 0,
+            norm_topk=cfg.moe.norm_topk)
+        r["d_ff"] = 64
     if cfg.ssm is not None:
         r["ssm"] = SSMConfig(state=16, head_dim=32, expand=2, conv_kernel=4,
                              chunk=32)

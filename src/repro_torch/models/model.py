@@ -1,16 +1,18 @@
 """Model factory of the port (counterpart of ``repro.models.model``).
 
-One config schema; two families are ported so far:
+One config schema; three families are ported so far:
 
   dense   decoder-only transformer (starcoder2, qwen3, qwen1.5, olmo)
+  moe     decoder-only with an MoE FFN (qwen2-moe, granite-moe)
   hybrid  Mamba2 backbone + one *shared* attention block applied every
           k layers (zamba2)
 
 Entry points, as in the reference:
 
   ``forward``      full-sequence logits
-  ``loss``         next-token CE with fp32 softmax; while grad is on, each
-                   layer is rematerialised as ``cfg.remat`` says
+  ``loss``         next-token CE (+ MoE aux) with fp32 softmax; while grad
+                   is on, each layer is rematerialised as ``cfg.remat``
+                   says
   ``prefill``      full-sequence pass that also emits the decode cache
   ``decode_step``  one-token step against the cache
 
@@ -35,7 +37,9 @@ from repro_torch.models import mamba2 as m2
 from repro_torch.models.layers import (apply_norm, embed_tokens,
                                        make_embed_params, make_norm_params,
                                        unembed)
-from repro_torch.models.transformer import (BLOCK_CACHE_AXES, BlockConfig,
+from repro_torch.models.moe import MoEConfig
+from repro_torch.models.transformer import (BLOCK_CACHE_AXES,
+                                            BLOCK_CACHE_AXES_Q, BlockConfig,
                                             apply_decoder_block,
                                             decode_decoder_block,
                                             init_block_cache, layer_slice,
@@ -50,7 +54,7 @@ Tree = Dict[str, object]
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense | hybrid (the ported ones)
+    family: str                      # dense | moe | hybrid (the ported ones)
     n_layers: int
     d_model: int
     n_heads: int
@@ -64,6 +68,7 @@ class ModelConfig:
     qk_norm: bool = False
     rope_theta: Optional[float] = 10000.0
     tie_embeddings: bool = False
+    moe: Optional[MoEConfig] = None
     ssm: Optional[m2.SSMConfig] = None
     shared_attn_every: int = 0       # hybrid: shared block cadence
     shared_attn_d_ff: int = 0        # hybrid: shared block MLP width
@@ -73,7 +78,7 @@ class ModelConfig:
     vocab_pad: int = 256
     remat: str = "dots"              # none | dots | full
     sub_quadratic: bool = False      # can serve long_500k
-    kv_cache_quant: bool = False     # int8 KV cache: not ported yet
+    kv_cache_quant: bool = False     # int8 KV cache (dense/moe decode)
 
     @property
     def hd(self) -> int:
@@ -88,18 +93,29 @@ class ModelConfig:
     def tdtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
-    def block_cfg(self, *, d_ff: Optional[int] = None) -> BlockConfig:
+    def block_cfg(self, *, moe: bool = True, d_ff: Optional[int] = None
+                  ) -> BlockConfig:
         return BlockConfig(
             d_model=self.d_model, n_heads=self.n_heads, kv_heads=self.kv_heads,
             head_dim=self.hd, d_ff=d_ff if d_ff is not None else self.d_ff,
             norm=self.norm, mlp=self.mlp, qkv_bias=self.qkv_bias,
             qk_norm=self.qk_norm, rope_theta=self.rope_theta,
-            attn_impl=self.attn_impl)
+            moe=self.moe if moe else None, attn_impl=self.attn_impl)
 
     def n_params(self) -> int:
         """Total parameter count, from shapes on the meta device."""
         params = Model(self, device="meta").init()
         return sum(math.prod(p.shape) for p in tree_leaves(params))
+
+    def n_active_params(self) -> int:
+        """Active params per token (MoE: routed top-k + shared only)."""
+        total = self.n_params()
+        if self.moe is None:
+            return total
+        per_expert = 3 * self.d_model * self.moe.expert_ff
+        inactive = (self.moe.n_experts - self.moe.top_k) * per_expert \
+            * self.n_layers
+        return total - inactive
 
 
 REMAT = ("none", "dots", "full")
@@ -133,7 +149,7 @@ def _maybe_remat(fn: Callable, remat: str) -> Callable:
 class Model:
     """Functional model wrapper: holds the config and the device."""
 
-    FAMILIES = ("dense", "hybrid")
+    FAMILIES = ("dense", "moe", "hybrid")
 
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
         if cfg.family not in self.FAMILIES:
@@ -207,7 +223,7 @@ class Model:
     # -- hybrid (zamba2) ---------------------------------------------------------
 
     def _shared_cfg(self) -> BlockConfig:
-        return self.cfg.block_cfg(d_ff=self.cfg.shared_attn_d_ff)
+        return self.cfg.block_cfg(moe=False, d_ff=self.cfg.shared_attn_d_ff)
 
     def _shared_flags(self) -> np.ndarray:
         """Static per-layer flags: apply the shared block after layer i."""
@@ -266,7 +282,7 @@ class Model:
         """Zero-initialised decode cache + its logical axes."""
         cfg = self.cfg
         length = torch.zeros(batch, dtype=torch.int32, device=self.device)
-        kv_axes = {k: ("layers", *a) for k, a in BLOCK_CACHE_AXES.items()}
+        prepend = lambda axes: {k: ("layers", *a) for k, a in axes.items()}
         if cfg.family == "hybrid":
             n_apps = int(self._shared_flags().sum())
             one = init_block_cache(batch, max_len, self._shared_cfg(),
@@ -275,12 +291,14 @@ class Model:
                                          cfg.tdtype, self.device)
             axes = {"mamba": {"h": ("layers", "batch", "inner", None, None),
                               "conv": ("layers", "batch", None, "inner")},
-                    "attn": kv_axes, "length": ("batch",)}
+                    "attn": prepend(BLOCK_CACHE_AXES), "length": ("batch",)}
             return {"mamba": _stacked(mamba, cfg.n_layers),
                     "attn": _stacked(one, n_apps), "length": length}, axes
         one = init_block_cache(batch, max_len, cfg.block_cfg(), cfg.tdtype,
                                self.device, quantized=cfg.kv_cache_quant)
-        axes = {"layers": kv_axes, "length": ("batch",)}
+        axes = {"layers": prepend(BLOCK_CACHE_AXES_Q if cfg.kv_cache_quant
+                                  else BLOCK_CACHE_AXES),
+                "length": ("batch",)}
         return {"layers": _stacked(one, cfg.n_layers), "length": length}, axes
 
     def prefill(self, params: Tree, batch: Dict[str, torch.Tensor],

@@ -1,14 +1,15 @@
-"""Dense decoder block (counterpart of ``repro.models.transformer``).
+"""Decoder block (counterpart of ``repro.models.transformer``).
 
-A block is a pre-norm attention sublayer plus a pre-norm MLP sublayer,
-with residuals. Entry points:
+A block is a pre-norm attention sublayer plus a pre-norm FFN sublayer
+(an MLP, or a mixture of experts), with residuals. Entry points:
 
   * ``apply_decoder_block``   — full sequence (forward),
   * ``prefill_decoder_block`` — full sequence that also emits the cache,
   * ``decode_decoder_block``  — one-token step against the cache.
 
 Parameters of a stack of blocks carry a leading ``layers`` axis; the
-model loops over it where the reference scans.
+model loops over it where the reference scans. The KV cache is kept in
+the block's dtype, or as int8 with one fp16 scale per (position, head).
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from repro_torch.models.attention import (_project_qkv, _sdpa_plain,
                                           make_attention_params, sdpa)
 from repro_torch.models.layers import (apply_mlp, apply_norm, make_mlp_params,
                                        make_norm_params)
+from repro_torch.models.moe import MoEConfig, apply_moe, make_moe_params
 
 Tree = Dict[str, object]
 
@@ -39,6 +41,7 @@ class BlockConfig:
     qkv_bias: bool = False
     qk_norm: bool = False
     rope_theta: Optional[float] = 10000.0
+    moe: Optional[MoEConfig] = None
     attn_impl: str = "plain"         # plain | kernel
 
 
@@ -62,8 +65,16 @@ def tree_leaves(tree) -> List[torch.Tensor]:
 
 def stack_params(n: int, maker: Callable[[], Tree]) -> Tree:
     """``n`` independently initialised copies of ``maker()`` stacked on a
-    leading ``layers`` axis."""
-    return tree_map(lambda *xs: torch.stack(xs), *[maker() for _ in range(n)])
+    leading ``layers`` axis. Each layer is drawn in turn and copied into
+    its row of a preallocated stack, so that init holds one layer beyond
+    the stack, not all n twice over."""
+    first = maker()
+    stack = tree_map(lambda t: torch.empty((n, *t.shape), dtype=t.dtype,
+                                           device=t.device), first)
+    tree_map(lambda row, t: row[0].copy_(t), stack, first)
+    for i in range(1, n):
+        tree_map(lambda row, t: row[i].copy_(t), stack, maker())
+    return stack
 
 
 def layer_slice(tree: Tree, i: int) -> Tree:
@@ -81,47 +92,61 @@ def unstack_params(tree: Tree, n: int) -> List[Tree]:
 
 
 # --------------------------------------------------------------------------
-# standard decoder block (attention + MLP)
+# standard decoder block (attention + MLP or MoE)
 # --------------------------------------------------------------------------
 
 def make_decoder_block(gen, cfg: BlockConfig, dtype, device) -> Tree:
-    return {"attn": make_attention_params(
-                gen, cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim,
-                dtype, device, qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm),
-            "norm1": make_norm_params(cfg.d_model, cfg.norm, dtype, device),
-            "norm2": make_norm_params(cfg.d_model, cfg.norm, dtype, device),
-            "mlp": make_mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.mlp, dtype,
-                                   device)}
+    params = {"attn": make_attention_params(
+                  gen, cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim,
+                  dtype, device, qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm),
+              "norm1": make_norm_params(cfg.d_model, cfg.norm, dtype, device),
+              "norm2": make_norm_params(cfg.d_model, cfg.norm, dtype, device)}
+    if cfg.moe is not None:
+        params["moe"] = make_moe_params(gen, cfg.d_model, cfg.moe, dtype,
+                                        device)
+    else:
+        params["mlp"] = make_mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.mlp,
+                                        dtype, device)
+    return params
+
+
+def _ffn(params: Tree, h: torch.Tensor, cfg: BlockConfig
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Second sublayer: MLP or MoE. Returns (out, aux_loss)."""
+    if cfg.moe is not None:
+        return apply_moe(params["moe"], h, cfg.moe)
+    return (apply_mlp(params["mlp"], h, cfg.mlp),
+            torch.zeros((), dtype=torch.float32, device=h.device))
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device).expand(b, s)
 
 
-def _attend_and_mlp(params: Tree, x: torch.Tensor, cfg: BlockConfig,
+def _attend_and_ffn(params: Tree, x: torch.Tensor, cfg: BlockConfig,
                     causal: bool, positions: torch.Tensor):
-    """Shared body of the full-sequence block; returns (x, k, v)."""
+    """Shared body of the full-sequence block; returns (x, aux, k, v)."""
     b, s, _ = x.shape
     h = apply_norm(params["norm1"], x, cfg.norm)
     q, k, v = _project_qkv(params["attn"], h, h, cfg.n_heads, cfg.kv_heads,
                            cfg.head_dim, positions, positions, cfg.rope_theta)
     o = sdpa(q, k, v, causal=causal, impl=cfg.attn_impl)
     x = x + o.reshape(b, s, cfg.n_heads * cfg.head_dim) @ params["attn"]["wo"]
-    hh = apply_norm(params["norm2"], x, cfg.norm)
-    return x + apply_mlp(params["mlp"], hh, cfg.mlp), k, v
+    f, aux = _ffn(params, apply_norm(params["norm2"], x, cfg.norm), cfg)
+    return x + f, aux, k, v
 
 
 def apply_decoder_block(params: Tree, x: torch.Tensor, cfg: BlockConfig, *,
                         causal: bool = True,
                         positions: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence block. Returns (x, aux_loss); a dense block has no
-    auxiliary loss."""
+    """Full-sequence block. Returns (x, aux_loss); the aux loss of a
+    block without experts is 0."""
     b, s, _ = x.shape
     if positions is None:
         positions = _positions(b, s, x.device)
-    x, _, _ = _attend_and_mlp(params, x, cfg, causal, positions)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux, _, _ = _attend_and_ffn(params, x, cfg, causal, positions)
+    return x, aux
 
 
 # -- KV-cache paths ---------------------------------------------------------
@@ -129,9 +154,14 @@ def apply_decoder_block(params: Tree, x: torch.Tensor, cfg: BlockConfig, *,
 def init_block_cache(batch: int, max_len: int, cfg: BlockConfig, dtype,
                      device, quantized: bool = False
                      ) -> Dict[str, torch.Tensor]:
-    if quantized:
-        raise NotImplementedError("the int8 KV cache is not ported yet")
     shape = (batch, max_len, cfg.kv_heads, cfg.head_dim)
+    if quantized:
+        # int8 payload + per-(position, head) fp16 scales: about half the
+        # bytes decode reads from the cache
+        zeros = lambda shp, dt: torch.zeros(shp, dtype=dt, device=device)
+        return {"k": zeros(shape, torch.int8), "v": zeros(shape, torch.int8),
+                "k_scale": zeros(shape[:3], torch.float16),
+                "v_scale": zeros(shape[:3], torch.float16)}
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -139,6 +169,23 @@ def init_block_cache(batch: int, max_len: int, cfg: BlockConfig, dtype,
 #: logical axes of a block KV cache; the engine finds the batch axis here
 BLOCK_CACHE_AXES = {"k": ("batch", "cache_seq", None, None),
                     "v": ("batch", "cache_seq", None, None)}
+BLOCK_CACHE_AXES_Q = dict(BLOCK_CACHE_AXES,
+                          k_scale=("batch", "cache_seq", None),
+                          v_scale=("batch", "cache_seq", None))
+
+
+def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (b, s, h, d) -> (int8, fp16 scale (b, s, h)). The division is by
+    the fp32 scale; an all-zero row's scale (1e-8) is 0 in fp16."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale.half()
+
+
+def _dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype
+                   ) -> torch.Tensor:
+    return (q.float() * scale.float()[..., None]).to(dtype)
 
 
 def prefill_decoder_block(params: Tree, x: torch.Tensor, cfg: BlockConfig,
@@ -146,11 +193,18 @@ def prefill_decoder_block(params: Tree, x: torch.Tensor, cfg: BlockConfig,
                           ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
     """Causal full-sequence pass that also returns the populated cache."""
     b, s, _ = x.shape
-    x, k, v = _attend_and_mlp(params, x, cfg, True, _positions(b, s, x.device))
+    x, aux, k, v = _attend_and_ffn(params, x, cfg, True,
+                                   _positions(b, s, x.device))
     cache = init_block_cache(b, max_len, cfg, k.dtype, x.device, quantized)
-    cache["k"][:, :s] = k
-    cache["v"][:, :s] = v
-    return x, torch.zeros((), dtype=torch.float32, device=x.device), cache
+    if quantized:
+        for name, t in (("k", k), ("v", v)):
+            q, scale = _quantize_kv(t)
+            cache[name][:, :s] = q
+            cache[f"{name}_scale"][:, :s] = scale
+    else:
+        cache["k"][:, :s] = k
+        cache["v"][:, :s] = v
+    return x, aux, cache
 
 
 def decode_decoder_block(params: Tree, x: torch.Tensor, cache: Dict,
@@ -158,11 +212,14 @@ def decode_decoder_block(params: Tree, x: torch.Tensor, cache: Dict,
                          ) -> Tuple[torch.Tensor, Dict]:
     """One-token step. x: (b, 1, d); length: (b,) current cache fill.
 
-    The new key and value are written into ``cache`` in place at
-    ``length``, where the reference adds a one-hot row: the slot at
-    ``length`` is zero, so both give the same cache. A row already past
-    the end (only an idle slot gets there) rewrites its last position,
-    where the reference drops the write; no live request reads it.
+    The new key and value (int8 and their scales, in a quantized cache)
+    are written into ``cache`` in place at ``length``, where the
+    reference adds a one-hot row: the slot at ``length`` is zero, so both
+    give the same cache. A row already past the end (only an idle slot
+    gets there) rewrites its last position, where the reference drops the
+    write; no live request reads it. A quantized cache is dequantized
+    whole to ``x``'s dtype for the attention, as in the reference. The
+    block's aux loss is dropped.
     """
     b = x.shape[0]
     h = apply_norm(params["norm1"], x, cfg.norm)
@@ -173,11 +230,19 @@ def decode_decoder_block(params: Tree, x: torch.Tensor, cache: Dict,
     max_len = cache["k"].shape[1]
     rows = torch.arange(b, device=x.device)
     at = length.clamp(max=max_len - 1)
-    cache["k"][rows, at] = k_new[:, 0]
-    cache["v"][rows, at] = v_new[:, 0]
+    if "k_scale" in cache:
+        for name, new in (("k", k_new), ("v", v_new)):
+            q_new, s_new = _quantize_kv(new)
+            cache[name][rows, at] = q_new[:, 0]
+            cache[f"{name}_scale"][rows, at] = s_new[:, 0]
+        k = _dequantize_kv(cache["k"], cache["k_scale"], x.dtype)
+        v = _dequantize_kv(cache["v"], cache["v_scale"], x.dtype)
+    else:
+        cache["k"][rows, at] = k_new[:, 0]
+        cache["v"][rows, at] = v_new[:, 0]
+        k, v = cache["k"], cache["v"]
     valid = torch.arange(max_len, device=x.device)[None, :] <= length[:, None]
-    o = _sdpa_plain(q, cache["k"], cache["v"], causal=False,
-                    kv_len_mask=valid)
+    o = _sdpa_plain(q, k, v, causal=False, kv_len_mask=valid)
     x = x + o.reshape(b, 1, cfg.n_heads * cfg.head_dim) @ params["attn"]["wo"]
-    hh = apply_norm(params["norm2"], x, cfg.norm)
-    return x + apply_mlp(params["mlp"], hh, cfg.mlp), cache
+    f, _ = _ffn(params, apply_norm(params["norm2"], x, cfg.norm), cfg)
+    return x + f, cache

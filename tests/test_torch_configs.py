@@ -17,7 +17,7 @@ def _assert_same(port, ref):
         got, want = getattr(port, f.name), getattr(ref, f.name)
         if f.name == "attn_impl":
             want = _IMPL[want]
-        if f.name == "ssm" and want is not None:  # the packages' own classes
+        if f.name in ("ssm", "moe") and want is not None:  # own classes
             got, want = dataclasses.asdict(got), dataclasses.asdict(want)
         assert got == want, f.name
     assert port.hd == ref.hd
@@ -26,12 +26,13 @@ def _assert_same(port, ref):
 
 
 def test_port_registry_is_the_dense_family():
-    """The registry holds the ported families, dense and hybrid; an arch
-    of another family raises."""
+    """The registry holds the ported families, dense, moe and hybrid; an
+    arch of another family raises."""
     assert sorted(ARCH_IDS) == sorted(
         a for a in ref_registry.ARCH_IDS
-        if ref_registry.get_config(a).family in ("dense", "hybrid"))
+        if ref_registry.get_config(a).family in ("dense", "moe", "hybrid"))
     assert get_config("zamba2-1.2b").family == "hybrid"
+    assert get_config("qwen2-moe-a2.7b").family == "moe"
     with pytest.raises(KeyError, match="not ported"):
         get_config("xlstm-350m")
 

@@ -363,3 +363,98 @@ def test_train_step_on_the_card_matches_cpu(cuda):
     for a, b in zip(tree_leaves(gpu_state["params"]),
                     tree_leaves(cpu_state["params"])):
         assert float((a.cpu() - b).abs().max()) <= 2 * lr + 1e-6
+
+
+# --------------------------------------------------------------------------
+# the MoE family and the int8 KV cache on the card
+# --------------------------------------------------------------------------
+
+#: model forward (tests/test_kernels.py) and prefill / decode
+#: (tests/test_serving.py)
+MODEL_TOL = dict(atol=2e-4, rtol=2e-3)
+DEC_TOL = dict(atol=2e-3, rtol=2e-2)
+
+
+def _on_both(arch, cuda, **overrides):
+    """A reduced model on the CPU and on the card, with the same weights."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import tree_map
+    cfg = reduced_config(arch, **overrides)
+    cpu = Model(cfg, device="cpu")
+    params = cpu.init(seed=0)
+    return cpu, params, Model(cfg, device=cuda), tree_map(
+        lambda t: t.to(cuda), params)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "granite-moe-3b-a800m"])
+@pytest.mark.parametrize("impl", ["plain", "kernel"])
+def test_reduced_moe_on_the_card_matches_cpu(cuda, arch, impl):
+    """Forward logits and aux, prefill and decode of a reduced MoE model
+    (fp32, default capacity: tokens are dropped) on the card against the
+    same model on the CPU, where the kernel route runs its plain version."""
+    cpu, params, gpu, gparams = _on_both(arch, cuda, attn_impl=impl)
+    rng = np.random.default_rng(6)
+    tokens = torch.from_numpy(rng.integers(0, cpu.cfg.vocab, (2, 64)))
+    want, want_aux = cpu.forward(params, {"tokens": tokens})
+    got, aux = gpu.forward(gparams, {"tokens": tokens.to(cuda)})
+    _close(got, want, MODEL_TOL)
+    _close(aux, want_aux, MODEL_TOL)
+    want, cache = cpu.prefill(params, {"tokens": tokens[:, :60]},
+                              max_len=64)
+    got, gcache = gpu.prefill(gparams, {"tokens": tokens[:, :60].to(cuda)},
+                              max_len=64)
+    _close(got, want, DEC_TOL)
+    for i in range(60, 64):
+        want, cache = cpu.decode_step(params, cache, tokens[:, i:i + 1])
+        got, gcache = gpu.decode_step(gparams, gcache,
+                                      tokens[:, i:i + 1].to(cuda))
+        _close(got, want, DEC_TOL)
+
+
+@pytest.mark.parametrize("dispatch", ["global", "grouped"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_dispatch_and_its_backward_repeat_bit_for_bit(cuda, dispatch,
+                                                          dtype):
+    """granite's routing (40 experts, top 8, renormalised) at d = 256 over
+    512 tokens, twice: the scatter back to tokens and the gather's
+    backward sum each row in a fixed order, so output and gradients are
+    equal bit for bit."""
+    from repro_torch.models import moe
+    cfg = moe.MoEConfig(n_experts=40, top_k=8, expert_ff=128,
+                        norm_topk=True, dispatch=dispatch)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = moe.make_moe_params(gen, 256, cfg, dtype, cuda)
+    x = torch.randn((2, 256, 256), generator=gen, device=cuda).to(dtype)
+    runs = []
+    for _ in range(2):
+        leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+        xg = x.detach().requires_grad_()
+        out, aux = moe.apply_moe(leaves, xg, cfg)
+        grads = torch.autograd.grad(out.float().square().sum() + aux,
+                                    [xg, *leaves.values()])
+        runs.append((out, aux, *grads))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert bool(torch.isfinite(runs[0][0]).all())
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "granite-moe-3b-a800m"])
+def test_int8_decode_on_the_card_matches_cpu(cuda, arch):
+    """The int8 cache on the card: prefill caches at most 1 LSB from the
+    CPU's, decode logits at the decode tolerance."""
+    cpu, params, gpu, gparams = _on_both(arch, cuda, kv_cache_quant=True)
+    tokens = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cpu.cfg.vocab, (2, 40)))
+    want, cache = cpu.prefill(params, {"tokens": tokens[:, :32]}, max_len=48)
+    got, gcache = gpu.prefill(gparams, {"tokens": tokens[:, :32].to(cuda)},
+                              max_len=48)
+    _close(got, want, DEC_TOL)
+    for name in ("k", "v"):
+        assert gcache["layers"][name].dtype == torch.int8
+        diff = gcache["layers"][name].cpu().int() - cache["layers"][name].int()
+        assert int(diff.abs().max()) <= 1, name
+    for i in range(32, 40):
+        want, cache = cpu.decode_step(params, cache, tokens[:, i:i + 1])
+        got, gcache = gpu.decode_step(gparams, gcache,
+                                      tokens[:, i:i + 1].to(cuda))
+        _close(got, want, DEC_TOL)

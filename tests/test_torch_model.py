@@ -22,14 +22,25 @@ DEC_TOL = dict(atol=2e-3, rtol=2e-2)
 _REF_IMPL = {"plain": "xla", "kernel": "pallas_interpret"}
 
 
-def _pair(arch, impl="plain", **overrides):
+def _drop_free(cfg):
+    """An MoE config at a drop-free capacity factor (tests/test_serving.py):
+    a full forward and a 2-token decode batch drop different tokens."""
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
+
+
+def _pair(arch, impl="plain", drop_free=False, **overrides):
     """(port model, reference model, port params, reference params)."""
     ref_cfg = ref_registry.reduced_config(arch, attn_impl=_REF_IMPL[impl],
                                           **overrides)
+    cfg = reduced_config(arch, attn_impl=impl, **overrides)
+    if drop_free:
+        ref_cfg, cfg = _drop_free(ref_cfg), _drop_free(cfg)
     ref_model = RefModel(ref_cfg)
     ref_params = ref_model.init(jax.random.key(0))
-    port = Model(reduced_config(arch, attn_impl=impl, **overrides),
-                 device="cpu")
+    port = Model(cfg, device="cpu")
     params = bridge.from_reference(jax.tree.map(np.asarray, ref_params),
                                    device="cpu")
     return port, ref_model, params, ref_params
@@ -56,10 +67,16 @@ def test_bridge_round_trip(dtype):
 def test_forward_matches_reference(arch, impl):
     port, ref_model, params, ref_params = _pair(arch, impl)
     tokens = _tokens(port.cfg, 2, 64)
-    want, _ = ref_model.forward(ref_params, {"tokens": jnp.asarray(tokens)})
+    want, want_aux = ref_model.forward(ref_params,
+                                       {"tokens": jnp.asarray(tokens)})
     got, aux = port.forward(params, {"tokens": torch.from_numpy(tokens)})
-    assert got.dtype == torch.float32 and float(aux) == 0.0
+    assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD_TOL)
+    if port.cfg.moe is None:
+        assert float(aux) == 0.0
+    else:
+        np.testing.assert_allclose(float(aux), float(want_aux), **FWD_TOL)
+        assert float(aux) > 0.0
 
 
 def test_loss_matches_reference():
@@ -76,8 +93,10 @@ def test_loss_matches_reference():
 @pytest.mark.parametrize("arch", sorted(ARCH_IDS))
 def test_prefill_decode_matches_reference_and_forward(arch):
     """logits(prefill k) + logits(decode k+1..n) == the reference's, and
-    == the port's own forward(n): the cache path is the forward path."""
-    port, ref_model, params, ref_params = _pair(arch)
+    == the port's own forward(n): the cache path is the forward path. MoE
+    archs at a drop-free capacity factor, as in tests/test_serving.py
+    (tests/test_torch_moe.py holds the dropping case to the reference)."""
+    port, ref_model, params, ref_params = _pair(arch, drop_free=True)
     b, k, n = 2, 12, 16
     tokens = _tokens(port.cfg, b, n)
     tt, jt = torch.from_numpy(tokens), jnp.asarray(tokens)
@@ -121,9 +140,8 @@ def test_decode_on_a_bridged_reference_cache():
 
 
 def test_unported_family_and_int8_cache_raise():
+    """A family not ported yet raises; the int8 cache, ported since, is
+    held in tests/test_torch_kv_int8.py."""
     cfg = reduced_config("qwen3-0.6b")
     with pytest.raises(NotImplementedError, match="not ported"):
-        Model(dataclasses.replace(cfg, family="moe"), device="cpu")
-    model = Model(dataclasses.replace(cfg, kv_cache_quant=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
-        model.make_cache(1, 8)
+        Model(dataclasses.replace(cfg, family="ssm"), device="cpu")
