@@ -10,7 +10,8 @@ Phases, in order; any failure exits non-zero:
      paths' shapes and timed beside its plain version, one PyTorch
      library call (where one computes the same function) and its bound:
      flash attention (bf16 tensor-core and fp32 scalar routes, at the
-     dense, hybrid and MoE prefill shapes), the fused RMSNorm, the two
+     dense, hybrid, MoE, whisper and vision prefill shapes), the fused
+     RMSNorm, the two
      SSD-scan passes on both routes (the intra pass, which also takes the
      chunk cumsum, and the inter pass, which also runs the chunk
      recurrence) and the composed SSD scan;
@@ -18,7 +19,9 @@ Phases, in order; any failure exits non-zero:
      granite-moe-3b-a800m in fp32, the kernel paths against the plain
      ones; the reduced MoE models' logits on the card against the CPU's,
      and the capacity cut between two equal sequences taking the same
-     tokens on both;
+     tokens on both; reduced xlstm-350m, whisper-tiny and
+     llama-3.2-vision-90b in fp32 on the card against the CPU (logits,
+     and greedy tokens equal), the kernel path against the plain one;
   4. the main paths, each with the launch counts set to 0 just before
      and read just after: full-width, full-depth qwen3-0.6b in bf16 on
      random weights serving 8 requests through ServeEngine, then its int8
@@ -28,9 +31,14 @@ Phases, in order; any failure exits non-zero:
      block through flash attention), then one full-width zamba2 forward,
      the reference's own kernel route; full-width, full-depth
      qwen2-moe-a2.7b and then granite-moe-3b-a800m in bf16 serving 8
-     requests each, and granite's int8 KV cache. Each dense or MoE model
-     also gives its parameter count, its peak memory and a repeated
-     512-token prefill, equal bit for bit;
+     requests each, and granite's int8 KV cache; then the last three
+     families, 8 requests each: full-size xlstm-350m, full-size
+     whisper-tiny (one seeded (1, 1500, 384) frames input) and
+     llama-3.2-vision-90b at full width with its depth cut to 20 layers
+     (one seeded (1, 1601, 8192) patches input, gates opened). Each of
+     these models also gives its parameter count, its peak memory, its
+     decode state per slot and a repeated 512-token prefill (448 for
+     whisper), equal bit for bit;
   5. host wall time against device-busy time and kernel launches per
      call (torch.profiler) for one decode step and one prefill of each
      served model, and neither torch's cumsum nor the chunk recurrence's
@@ -135,6 +143,22 @@ MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = \
 #: on the largest logit error over the largest logit
 #: (tests/test_perf_features.py::test_int8_kv_cache_decode_accuracy)
 INT8_PROMPT, INT8_STEPS, INT8_BOUND = 300, 16, 0.05
+#: the last three families: parameters counted from the reference's
+#: configs (the reference's n_params), the vision model's depth cut (100
+#: layers, 87,666,794,536 parameters, about 175 GB in bf16, do not fit one
+#: 80 GB card), its cross-layer gates (0 at init, where a cross layer adds
+#: nothing), and flash launches per prefill (whisper: its 4 decoder
+#: layers; the vision model: its 16 self layers; xLSTM has no kernel)
+FAMILY_ARCHS = ("xlstm-350m", "whisper-tiny", "llama-3.2-vision-90b")
+FAMILY_PARAMS = {"xlstm-350m": 524_361_896, "whisper-tiny": 49_099_776,
+                 "llama-3.2-vision-90b": 19_214_442_504}
+VLM_LAYERS = 20
+GATES = {"gate_attn": 0.5, "gate_mlp": -0.75}
+#: the stub frontend's input of each family, and the repeated and
+#: profiled prompt where it is not 512 tokens (whisper's real decoder
+#: stops at 448 positions)
+STUB = {"audio": "frames", "vlm": "patches"}
+PROFILE_PROMPT = {"whisper-tiny": 448}
 
 
 def check(ok: bool, what: str) -> None:
@@ -504,78 +528,10 @@ def serve_hybrid():
     return model, params, engine, results, launches, lengths, wall
 
 
-def cache_bytes(cache) -> int:
-    return sum(t.numel() * t.element_size()
-               for t in tree_leaves(cache["layers"]))
-
-
-def serve_decoder(arch):
-    """Full-width, full-depth ``arch`` (dense or MoE) in bf16 on random
-    weights serving 8 requests through ServeEngine, every prefill through
-    flash attention; its parameter count against cfg.n_params(), peak
-    memory after init and after serving, and one 512-token prefill run
-    twice, whose logits and cache must be equal bit for bit. Returns
-    (model, params, engine, results, flash launches while serving, prompt
-    lengths, wall seconds, numbers)."""
-    cfg = get_config(arch, attn_impl="kernel")
-    model = Model(cfg)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = model.init(seed=0)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    init_peak = torch.cuda.max_memory_allocated()
-    resident = torch.cuda.memory_allocated()
-    n_params = sum(t.numel() for t in tree_leaves(params))
-    check(n_params == cfg.n_params(), f"{arch}: {n_params} parameters == "
-                                      f"cfg.n_params() {cfg.n_params()}")
-    engine = ServeEngine(model, params, n_slots=4, max_len=1024)
-    rng = np.random.default_rng(0)
-    lengths = [int(n) for n in rng.integers(16, 513, size=8)]
-    check(any(n % 64 for n in lengths), "a ragged prompt length")
-    queue = RequestQueue()
-    for n in lengths:
-        queue.submit(rng.integers(0, cfg.vocab, size=n), max_new_tokens=32)
-    torch.cuda.synchronize()
-    flash_ops.launches = 0
-    t0 = time.perf_counter()
-    results = engine.run(queue)
-    wall = time.perf_counter() - t0
-    launches = flash_ops.launches
-    check(len(results) == 8, f"{arch}: 8 requests finish, got {len(results)}")
-    for r in results:
-        check(len(r.tokens) == 32, f"{arch} request {r.uid}: 32 tokens")
-        check(all(0 <= t < cfg.vocab for t in r.tokens),
-              f"{arch} request {r.uid}: tokens in [0, vocab)")
-    for name, t in engine.cache["layers"].items():
-        check(bool(torch.isfinite(t).all()), f"{arch}: finite KV cache {name}")
-    check(launches == cfg.n_layers * engine.n_prefills,
-          f"{arch}: flash launches {launches} == {cfg.n_layers} x "
-          f"{engine.n_prefills} prefills")
-    serve_peak = torch.cuda.max_memory_allocated()
-    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, size=512),
-                             device="cuda")[None]
-    runs = [model.prefill(params, {"tokens": prompt}, max_len=1024)
-            for _ in range(2)]
-    (l1, c1), (l2, c2) = runs
-    check(l1.shape == (1, 1, cfg.padded_vocab) and
-          bool(torch.isfinite(l1[..., :cfg.vocab]).all()),
-          f"{arch}: finite prefill logits")
-    check(torch.equal(l1, l2) and all(torch.equal(a, b) for a, b in zip(
-        tree_leaves(c1), tree_leaves(c2))),
-          f"{arch}: a repeated 512-token prefill gives equal logits and cache")
-    del runs, c1, c2
-    numbers = dict(params=n_params, params_active=cfg.n_active_params(),
-                   init_s=init_s, init_peak_bytes=init_peak,
-                   resident_bytes=resident, serve_peak_bytes=serve_peak,
-                   repeated_prefill_equal=True)
-    print(f"{arch}: {n_params:,} parameters ({cfg.n_active_params():,} "
-          f"active per token) == cfg.n_params(); init {init_s:.2f} s, peak "
-          f"{init_peak / 2**30:.3f} GiB ({resident / 2**30:.3f} GiB "
-          f"resident); peak while serving {serve_peak / 2**30:.3f} GiB; a "
-          f"repeated 512-token prefill equal bit for bit")
-    return model, params, engine, results, launches, lengths, wall, numbers
+def state_bytes(cache) -> int:
+    """Bytes of a decode cache's tensors, its lengths left out."""
+    return sum(t.numel() * t.element_size() for k, v in cache.items()
+               if k != "length" for t in tree_leaves(v))
 
 
 def int8_against_bf16(model, params):
@@ -602,7 +558,7 @@ def int8_against_bf16(model, params):
     want, cache = model.prefill(params, batch, max_len=max_len)
     got, qcache = quant.prefill(params, batch, max_len=max_len)
     check(qcache["layers"]["k"].dtype == torch.int8, "an int8 cache")
-    ratio = cache_bytes(qcache) / cache_bytes(cache)
+    ratio = state_bytes(qcache) / state_bytes(cache)
     compare(want, got)
     for i in range(INT8_PROMPT, max_len):
         want, cache = model.decode_step(params, cache, tokens[:, i:i + 1])
@@ -613,10 +569,10 @@ def int8_against_bf16(model, params):
                             f"the largest bf16 logit, got {rel:.4f}")
     print(f"{cfg.name} int8 KV cache: largest logit error over largest logit "
           f"{rel:.5f} (bound {INT8_BOUND}) over a {INT8_PROMPT}-token prefill "
-          f"and {INT8_STEPS} decode steps; cache {cache_bytes(qcache):,} bytes "
-          f"against {cache_bytes(cache):,} in bf16 ({ratio:.4f})")
-    return dict(rel_err=rel, max_abs_err=max(errs), cache_bytes=cache_bytes(
-        qcache), bf16_cache_bytes=cache_bytes(cache), ratio=ratio)
+          f"and {INT8_STEPS} decode steps; cache {state_bytes(qcache):,} bytes "
+          f"against {state_bytes(cache):,} in bf16 ({ratio:.4f})")
+    return dict(rel_err=rel, max_abs_err=max(errs), cache_bytes=state_bytes(
+        qcache), bf16_cache_bytes=state_bytes(cache), ratio=ratio)
 
 
 def print_serving(name, engine, results, lengths, wall, launches):
@@ -675,17 +631,24 @@ def profile_call(name, fn, kernels, n: int = PROFILE_CALLS):
     return rows, launches, wall_ms, device_ms
 
 
-def where_time_goes(model, params, engine, kernels):
+def where_time_goes(model, params, engine, kernels, extra=None):
     """``profile_call`` for one decode step of the 4-slot batch and one
-    512-token prefill, warm, as the main path runs them. Returns {call:
-    (its kernel rows, longest first, kernel launches per call)}."""
-    prompt = torch.randint(0, model.cfg.vocab, (1, 512), device="cuda")
+    prefill of 512 tokens (PROFILE_PROMPT's length where it names the
+    model), warm, as the main path runs them; over 2 calls for xLSTM,
+    whose sLSTM prefill launches tens of thousands of kernels. Returns
+    {call: (its kernel rows, longest first, kernel launches per call,
+    wall ms, device-busy ms)}."""
+    cfg = model.cfg
+    s = PROFILE_PROMPT.get(cfg.name, 512)
+    prompt = torch.randint(0, cfg.vocab, (1, s), device="cuda")
     calls = {
         "decode step, 4 slots": lambda: model.decode_step(
             params, engine.cache, engine.last_tokens),
-        "prefill, 512 tokens": lambda: model.prefill(
-            params, {"tokens": prompt}, max_len=engine.max_len)}
-    return {name: profile_call(name, fn, kernels)[:2]
+        f"prefill, {s} tokens": lambda: model.prefill(
+            params, {"tokens": prompt, **(extra or {})},
+            max_len=engine.max_len)}
+    n = 2 if cfg.family == "ssm" else PROFILE_CALLS
+    return {name: profile_call(name, fn, kernels, n=n)
             for name, fn in calls.items()}
 
 
@@ -703,6 +666,191 @@ def rmsnorm_entry_point():
     check(y.shape == x.shape and bool(torch.isfinite(y).all()),
           "finite normed rows")
     return launches
+
+
+# --------------------------------------------------------------------------
+# phases 3 to 5: the xLSTM, whisper and llama-vision families
+# --------------------------------------------------------------------------
+
+def open_gates(params) -> None:
+    """Set the vision model's cross-layer gates (0 at init) to GATES."""
+    if "segments" in params:
+        for name, value in GATES.items():
+            params["segments"]["cross"][name].fill_(value)
+
+
+def stub_input(cfg, b: int, seed: int, device) -> dict:
+    """The audio (``frames``) or vision (``patches``) family's stub
+    frontend input, (b, n_frontend_tokens, d_model) from a seeded CPU
+    generator, or nothing."""
+    name = STUB.get(cfg.family)
+    if name is None:
+        return {}
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((b, cfg.n_frontend_tokens, cfg.d_model), generator=gen)
+    return {name: x.to(device, cfg.tdtype)}
+
+
+def flash_per_prefill(model) -> int:
+    """Flash launches of one prefill or forward: each causal
+    self-attention (the encoder and the cross layers run plain)."""
+    cfg = model.cfg
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "vlm":
+        nseg, nself = model._vlm_seg()
+        return nseg * nself
+    return cfg.n_layers
+
+
+def family_parity(arch):
+    """Reduced ``arch`` in fp32, weights drawn on the CPU (vision gates
+    opened): on the card the kernel path against the plain one (flash in
+    each causal self-attention), the card's logits against the CPU's, and
+    a prefill of 60 tokens and 8 greedy decode steps giving the same
+    tokens on the card as on the CPU, each step's logits within the
+    serving tolerance. Returns the largest errors (kernel, CPU forward,
+    CPU serving)."""
+    cfg = reduced_config(arch)
+    cpu = Model(cfg, device="cpu")
+    params_cpu = cpu.init(seed=0)
+    open_gates(params_cpu)
+    params = tree_map(lambda t: t.to("cuda"), params_cpu)
+    plain = Model(cfg)
+    kernel = Model(reduced_config(arch, attn_impl="kernel"))
+    gen = torch.Generator().manual_seed(6)
+    tokens = torch.randint(0, cfg.vocab, (2, 64), generator=gen)
+    extra = stub_input(cfg, 2, 7, "cpu")
+    on_card = lambda batch: {k: v.cuda() for k, v in batch.items()}
+    batch = {"tokens": tokens, **extra}
+    want, _ = plain.forward(params, on_card(batch))
+    flash_ops.launches = 0
+    got, _ = kernel.forward(params, on_card(batch))
+    torch.cuda.synchronize()
+    n_flash = flash_per_prefill(kernel)
+    check(flash_ops.launches == n_flash,
+          f"{arch}: {n_flash} flash launches in the reduced forward, got "
+          f"{flash_ops.launches}")
+    err_kernel = max_err(got, want, **MODEL_TOL,
+                         what=f"reduced {arch} kernel logits")
+    on_cpu, _ = cpu.forward(params_cpu, batch)
+    err_cpu = max_err(want.cpu(), on_cpu, **MODEL_TOL,
+                      what=f"reduced {arch} logits, card against CPU")
+    prompt = dict(batch, tokens=tokens[:, :60])
+    lg, cache = kernel.prefill(params, on_card(prompt), max_len=72)
+    lc, cache_c = cpu.prefill(params_cpu, prompt, max_len=72)
+    err_serve = 0.0
+    for step in range(9):
+        err_serve = max(err_serve, max_err(
+            lg.cpu(), lc, **SERVE_TOL,
+            what=f"reduced {arch} serving logits step {step}, card "
+                 f"against CPU"))
+        tok_g, tok_c = lg[:, -1].argmax(-1), lc[:, -1].argmax(-1)
+        check(torch.equal(tok_g.cpu(), tok_c),
+              f"{arch}: greedy tokens of step {step} equal on the card and "
+              f"the CPU: {tok_g.tolist()} against {tok_c.tolist()}")
+        if step < 8:
+            lg, cache = kernel.decode_step(params, cache, tok_g[:, None])
+            lc, cache_c = cpu.decode_step(params_cpu, cache_c,
+                                          tok_c[:, None])
+    return err_kernel, err_cpu, err_serve
+
+
+def serve_model(arch):
+    """Full-width ``arch`` (dense, MoE, xLSTM, whisper or the vision
+    model) in bf16 on random weights from seed 0 (vision gates opened)
+    serving 8 requests of 32 new tokens through ServeEngine(n_slots=4,
+    max_len=1024), every causal prefill through flash attention, one
+    seeded stub input (batch 1) given to every request as
+    ``extra_inputs``. Full depth, but the vision model at VLM_LAYERS. Its
+    parameter count against cfg.n_params(), peak memory after init and
+    after serving, decode state per slot, and one prefill of 512 tokens
+    (PROFILE_PROMPT's length where it names the model) run twice, whose
+    logits and cache must be equal bit for bit. Returns (model, params,
+    engine, results, flash launches while serving, prompt lengths, wall
+    seconds, numbers, extra inputs)."""
+    overrides = {"n_layers": VLM_LAYERS} if arch.startswith("llama") else {}
+    cfg = get_config(arch, attn_impl="kernel", **overrides)
+    model = Model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = model.init(seed=0)
+    open_gates(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() - base
+    resident = torch.cuda.memory_allocated() - base
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    check(n_params == cfg.n_params() == FAMILY_PARAMS.get(arch, n_params),
+          f"{arch}: {n_params} parameters == cfg.n_params() "
+          f"{cfg.n_params()} (and the reference's count)")
+    engine = ServeEngine(model, params, n_slots=4, max_len=1024)
+    rng = np.random.default_rng(0)
+    if cfg.family == "ssm":
+        # the chunkwise mLSTM prefill takes a prompt of at most one chunk
+        # (128) or of whole chunks (the reference's rule)
+        lengths = [int(n) for n in rng.integers(16, 129, size=4)]
+        lengths += [int(n) for n in rng.choice([128, 256, 384, 512], size=4)]
+    else:
+        top = 449 if cfg.family == "audio" else 513
+        lengths = [int(n) for n in rng.integers(16, top, size=8)]
+    check(any(n % 64 for n in lengths), "a ragged prompt length")
+    extra = stub_input(cfg, 1, 11, "cuda")
+    queue = RequestQueue()
+    for n in lengths:
+        queue.submit(rng.integers(0, cfg.vocab, size=n), max_new_tokens=32)
+    torch.cuda.synchronize()
+    flash_ops.launches = 0
+    t0 = time.perf_counter()
+    results = engine.run(queue, extra_inputs=extra)
+    wall = time.perf_counter() - t0
+    launches = flash_ops.launches
+    check(len(results) == 8, f"{arch}: 8 requests finish, got {len(results)}")
+    for r in results:
+        check(len(r.tokens) == 32, f"{arch} request {r.uid}: 32 tokens")
+        check(all(0 <= t < cfg.vocab for t in r.tokens),
+              f"{arch} request {r.uid}: tokens in [0, vocab)")
+    for t in tree_leaves({k: v for k, v in engine.cache.items()
+                          if k != "length"}):
+        check(bool(torch.isfinite(t).all()), f"{arch}: finite decode cache")
+    per = flash_per_prefill(model)
+    check(launches == per * engine.n_prefills,
+          f"{arch}: flash launches {launches} == {per} x "
+          f"{engine.n_prefills} prefills")
+    serve_peak = torch.cuda.max_memory_allocated() - base
+    per_slot = state_bytes(engine.cache) // engine.n_slots
+    s = PROFILE_PROMPT.get(arch, 512)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, size=s),
+                             device="cuda")[None]
+    runs = [model.prefill(params, {"tokens": prompt, **extra},
+                          max_len=1024) for _ in range(2)]
+    (l1, c1), (l2, c2) = runs
+    check(l1.shape == (1, 1, cfg.padded_vocab) and
+          bool(torch.isfinite(l1[..., :cfg.vocab]).all()),
+          f"{arch}: finite prefill logits")
+    check(torch.equal(l1, l2) and all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(c1), tree_leaves(c2))),
+          f"{arch}: a repeated {s}-token prefill gives equal logits and cache")
+    del runs, c1, c2
+    numbers = dict(params=n_params, params_active=cfg.n_active_params(),
+                   layers=cfg.n_layers, init_s=init_s,
+                   init_peak_bytes=init_peak, resident_bytes=resident,
+                   serve_peak_bytes=serve_peak, state_bytes_per_slot=per_slot,
+                   flash_per_prefill=per, repeated_prefill_equal=True)
+    cut = (f" (depth cut from 100: the full model's 87,666,794,536 "
+           f"parameters, about 175 GB in bf16, do not fit one 80 GB card)"
+           if arch.startswith("llama") else "")
+    print(f"{arch}: {cfg.n_layers} layers{cut}, {n_params:,} parameters "
+          f"({cfg.n_active_params():,} active per token) == cfg.n_params(); "
+          f"init {init_s:.2f} s, peak {init_peak / 2**30:.3f} GiB "
+          f"({resident / 2**30:.3f} GiB resident); peak while serving "
+          f"{serve_peak / 2**30:.3f} GiB; decode state {per_slot:,} bytes "
+          f"per slot; a repeated {s}-token prefill equal bit for bit")
+    return (model, params, engine, results, launches, lengths, wall,
+            numbers, extra)
 
 
 # --------------------------------------------------------------------------
@@ -1016,6 +1164,12 @@ def main() -> int:
     flash_moe = [check_flash(gen, 1, 512, 16, 16, 128, torch.bfloat16),
                  check_flash(gen, 1, 512, 24, 8, 64, torch.bfloat16)]
     flash_rows += flash_moe
+    # the last families' causal prefills: whisper's decoder (6/6, d = 64)
+    # at its longest prompt, and the vision model's self layers (64/8,
+    # d = 128: a GQA group of 8)
+    flash_new = [check_flash(gen, 1, 448, 6, 6, 64, torch.bfloat16),
+                 check_flash(gen, 1, 512, 64, 8, 128, torch.bfloat16)]
+    flash_rows += flash_new
     flash_f32 = [check_flash(gen, 1, 512, 16, 8, 128, torch.float32),
                  check_flash(gen, 1, 512, 32, 32, 64, torch.float32)]
     print_rows("flash_attention", flash_rows)
@@ -1053,10 +1207,21 @@ def main() -> int:
               f"err {err_kernel:.3g}; card vs CPU {err_cpu:.3g}; the capacity "
               f"cut between two equal sequences takes the same tokens on "
               f"the card as on the CPU")
+    parity = {}
+    for arch in FAMILY_ARCHS:
+        err_kernel, err_cpu, err_serve = family_parity(arch)
+        parity[arch] = dict(kernel_max_abs_err=err_kernel,
+                            cpu_max_abs_err=err_cpu,
+                            cpu_serving_max_abs_err=err_serve,
+                            greedy_tokens_equal=True)
+        print(f"reduced {arch} fp32: kernel vs plain logits max abs err "
+              f"{err_kernel:.3g}; card vs CPU forward {err_cpu:.3g}, prefill "
+              f"and 8 greedy decode steps {err_serve:.3g}, the same greedy "
+              f"tokens")
 
     serving = {}
     (model, params, engine, results, flash_launches, lengths, wall,
-     serving["qwen3-0.6b"]) = serve_decoder("qwen3-0.6b")
+     serving["qwen3-0.6b"], _) = serve_model("qwen3-0.6b")
     print_serving("qwen3-0.6b", engine, results, lengths, wall,
                   {"flash_attention": flash_launches})
     serving["int8 qwen3-0.6b"] = int8_against_bf16(model, params)
@@ -1081,8 +1246,7 @@ def main() -> int:
     # stack of the states (a CatArrayBatchedCopy kernel, once per Mamba2
     # layer) must not appear either; the model's own cats (rope in the 6
     # shared-block applications, the cache stacks) launch fewer times
-    prefill_rows, prefill_launches = traces.get("prefill, 512 tokens",
-                                                ([], 0))
+    prefill_rows, prefill_launches = traces["prefill, 512 tokens"][:2]
     check(bool(prefill_rows), "the profiler saw the zamba2 prefill's kernels")
     scans = [r.key for r in prefill_rows
              if "cumsum" in r.key.lower() or "scan_outer_dim" in r.key]
@@ -1103,7 +1267,7 @@ def main() -> int:
     moe_launches = {}
     for arch in MOE_ARCHS:
         (model, params, engine, results, moe_launches[arch], lengths, wall,
-         serving[arch]) = serve_decoder(arch)
+         serving[arch], _) = serve_model(arch)
         print_serving(arch, engine, results, lengths, wall,
                       {"flash_attention": moe_launches[arch]})
         if arch == "qwen2-moe-a2.7b":
@@ -1113,6 +1277,31 @@ def main() -> int:
         else:
             serving[f"int8 {arch}"] = int8_against_bf16(model, params)
         del model, params, engine
+        torch.cuda.empty_cache()
+
+    family_launches = {}
+    for arch in FAMILY_ARCHS:
+        (model, params, engine, results, family_launches[arch], lengths,
+         wall, numbers, extra) = serve_model(arch)
+        print_serving(arch, engine, results, lengths, wall,
+                      {"flash_attention": family_launches[arch]})
+        n_tokens = sum(len(r.tokens) for r in results)
+        numbers.update(
+            tokens_per_s=n_tokens / (engine.prefill_s + engine.decode_s),
+            prefill_ms=engine.prefill_s / engine.n_prefills * 1e3,
+            decode_step_ms=engine.decode_s / engine.decode_steps * 1e3,
+            wall_s=wall, prompts=sorted(lengths), parity=parity[arch],
+            profile={})
+        print(f"where the time goes ({arch} bf16, warm):")
+        traces = where_time_goes(model, params, engine,
+                                 {"flash attention": "flash_fwd"}, extra)
+        for name, (_, launches, wall_ms, device_ms) in traces.items():
+            check(device_ms is not None, f"the profiler saw {arch}'s {name}")
+            numbers["profile"][name] = dict(
+                wall_ms=wall_ms, device_busy_ms=device_ms,
+                idle_share=1 - device_ms / wall_ms, launches=launches)
+        serving[arch] = numbers
+        del model, params, engine, extra, traces
         torch.cuda.empty_cache()
 
     # training runs the plain paths, as the reference's does: no kernel of
@@ -1140,12 +1329,15 @@ def main() -> int:
                     "flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:101",
              launches=(flash_launches + hybrid_launches["flash_attention"]
-                       + sum(moe_launches.values())),
+                       + sum(moe_launches.values())
+                       + sum(family_launches.values())),
              launches_by_path={
                  "qwen3-0.6b serving": flash_launches,
                  "zamba2-1.2b serving": hybrid_launches["flash_attention"],
                  **{f"{arch} serving": n
-                    for arch, n in moe_launches.items()}}),
+                    for arch, n in moe_launches.items()},
+                 **{f"{arch} serving": n
+                    for arch, n in family_launches.items()}}),
         dict(name="fused_rmsnorm", route="triton",
              source="src/repro_torch/kernels/rmsnorm/kernel.py",
              replaces="src/repro/kernels/rmsnorm/kernel.py:40",
@@ -1176,6 +1368,8 @@ def main() -> int:
     kernels[0]["fp32"] = {k: flash_f32[0][k] for k in keys}
     kernels[0]["moe_shapes"] = [{k: row[k] for k in keys}
                                 for row in flash_moe]
+    kernels[0]["whisper_vision_shapes"] = [{k: row[k] for k in keys}
+                                           for row in flash_new]
     kernels[2]["fp32"] = {k: ssd_rows[1][0][k] for k in keys}
     kernels[2]["cumsum_ms"] = ssd_rows[0][0]["cumsum_ms"]
     kernels[3]["fp32"] = {k: ssd_rows[1][1][k] for k in keys}

@@ -2,7 +2,8 @@
 
 The trees arrive as numpy arrays (``np.asarray`` of each JAX leaf), so
 this module needs nothing of JAX. Keys and layouts are the same in both
-packages, so the map is leaf by leaf. A JAX bf16 array becomes an
+packages (dicts, and lists where the reference keeps a list, as for the
+xLSTM layers), so the map is leaf by leaf. A JAX bf16 array becomes an
 ``ml_dtypes.bfloat16`` numpy array, which ``torch.from_numpy`` rejects:
 it goes through float32, which holds every bf16 value exactly.
 """
@@ -27,6 +28,8 @@ def _leaf(a, device: torch.device) -> torch.Tensor:
 def _map(tree, device: torch.device):
     if isinstance(tree, dict):
         return {k: _map(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(v, device) for v in tree]
     return _leaf(tree, device)
 
 
@@ -45,5 +48,7 @@ def to_numpy(tree):
     with the reference."""
     if isinstance(tree, dict):
         return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_numpy(v) for v in tree]
     t = tree.detach().cpu()
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

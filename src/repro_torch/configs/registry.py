@@ -1,6 +1,6 @@
 """Architecture registry of the port: ``--arch <id>`` -> ModelConfig.
 
-The dense decoder, MoE and hybrid (zamba2) families are ported so far.
+All ten archs of the reference registry, in its six families.
 ``get_config(id)`` returns the full published config;
 ``reduced_config(id)`` a tiny same-family fp32 config for CPU tests, with
 no rematerialisation. The values are the reference
@@ -11,27 +11,24 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List
 
-from repro_torch.configs import (granite_moe_3b_a800m, olmo_1b, qwen1p5_32b,
-                                 qwen2_moe_a2p7b, qwen3_0p6b, starcoder2_7b,
-                                 zamba2_1p2b)
+from repro_torch.configs import (granite_moe_3b_a800m, llama3p2_vision_90b,
+                                 olmo_1b, qwen1p5_32b, qwen2_moe_a2p7b,
+                                 qwen3_0p6b, starcoder2_7b, whisper_tiny,
+                                 xlstm_350m, zamba2_1p2b)
 from repro_torch.models.mamba2 import SSMConfig
 from repro_torch.models.model import ModelConfig
 from repro_torch.models.moe import MoEConfig
+from repro_torch.models.xlstm import XLSTMConfig
 
-_MODULES = [zamba2_1p2b, qwen2_moe_a2p7b, granite_moe_3b_a800m,
-            starcoder2_7b, qwen3_0p6b, qwen1p5_32b, olmo_1b]
+_MODULES = [zamba2_1p2b, qwen2_moe_a2p7b, granite_moe_3b_a800m, xlstm_350m,
+            starcoder2_7b, qwen3_0p6b, qwen1p5_32b, olmo_1b, whisper_tiny,
+            llama3p2_vision_90b]
 
 CONFIGS: Dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 ARCH_IDS: List[str] = list(CONFIGS)
 
-#: archs of the reference registry whose families are not ported yet
-NOT_PORTED = ("xlstm-350m", "whisper-tiny", "llama-3.2-vision-90b")
-
 
 def get_config(name: str, **overrides) -> ModelConfig:
-    if name in NOT_PORTED:
-        raise KeyError(f"arch {name!r} is not ported to PyTorch yet; "
-                       f"ported: {ARCH_IDS}")
     if name not in CONFIGS:
         raise KeyError(f"unknown arch {name!r}; choose from {ARCH_IDS}")
     cfg = CONFIGS[name]
@@ -44,7 +41,10 @@ def reduced_config(name: str, **overrides) -> ModelConfig:
     cfg = get_config(name)
     r = dict(d_model=128, n_heads=4, kv_heads=min(cfg.kv_heads, 4),
              head_dim=32, d_ff=256, vocab=512, vocab_pad=64, n_layers=4,
-             dtype="float32", remat="none")
+             dtype="float32", remat="none",
+             max_pos=256 if cfg.max_pos else 0,
+             n_frontend_tokens=16 if cfg.n_frontend_tokens else 0,
+             n_encoder_layers=2 if cfg.n_encoder_layers else 0)
     if cfg.moe is not None:
         r["moe"] = MoEConfig(
             n_experts=8, top_k=2, expert_ff=64,
@@ -54,8 +54,14 @@ def reduced_config(name: str, **overrides) -> ModelConfig:
     if cfg.ssm is not None:
         r["ssm"] = SSMConfig(state=16, head_dim=32, expand=2, conv_kernel=4,
                              chunk=32)
+    if cfg.xlstm is not None:
+        r["xlstm"] = XLSTMConfig(n_heads=4, expand=2, conv_kernel=4,
+                                 slstm_every=2,
+                                 ffn_factor=cfg.xlstm.ffn_factor)
     if cfg.shared_attn_every:
         r["shared_attn_every"] = 2
         r["shared_attn_d_ff"] = 256
+    if cfg.cross_attn_every:
+        r["cross_attn_every"] = 2
     r.update(overrides)
     return dataclasses.replace(cfg, **r)

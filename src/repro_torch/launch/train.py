@@ -63,7 +63,10 @@ def main(argv=None):
     state = adamw_init(params)
 
     ds = SyntheticDataset(vocab=cfg.vocab, seq_len=args.seq,
-                          global_batch=args.batch, device=model.device)
+                          global_batch=args.batch, family=cfg.family,
+                          n_frontend_tokens=cfg.n_frontend_tokens,
+                          d_model=cfg.d_model, dtype=cfg.dtype,
+                          device=model.device)
     opt = AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 5),
                       total_steps=args.steps)
     raw_step = make_train_step(model, opt, microbatches=args.microbatches)

@@ -1,11 +1,17 @@
 """Model factory of the port (counterpart of ``repro.models.model``).
 
-One config schema; three families are ported so far:
+One config schema, the reference's six families:
 
   dense   decoder-only transformer (starcoder2, qwen3, qwen1.5, olmo)
   moe     decoder-only with an MoE FFN (qwen2-moe, granite-moe)
   hybrid  Mamba2 backbone + one *shared* attention block applied every
           k layers (zamba2)
+  ssm     xLSTM: mLSTM blocks with a recurrent sLSTM block every k
+          (xlstm-350m)
+  audio   encoder-decoder over precomputed frame embeddings (whisper; the
+          conv frontend is a stub, as in the reference)
+  vlm     decoder with gated cross-attention to precomputed patch
+          embeddings every k layers (llama-3.2-vision)
 
 Entry points, as in the reference:
 
@@ -18,7 +24,9 @@ Entry points, as in the reference:
 
 Params and caches are nested dicts of tensors in the reference layout:
 weights stored as (in, out) and a leading ``layers`` axis on the block
-stack, so the bridge from the reference is a plain tree map.
+stack (two, ``(segments, layers)``, on the vision model's self layers),
+and a Python list where the reference keeps one (the xLSTM layers), so
+the bridge from the reference is a plain tree map.
 """
 from __future__ import annotations
 
@@ -34,16 +42,22 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import mamba2 as m2
-from repro_torch.models.layers import (apply_norm, embed_tokens,
+from repro_torch.models import xlstm as xl
+from repro_torch.models.layers import (apply_norm, dense_init, embed_tokens,
                                        make_embed_params, make_norm_params,
                                        unembed)
 from repro_torch.models.moe import MoEConfig
 from repro_torch.models.transformer import (BLOCK_CACHE_AXES,
                                             BLOCK_CACHE_AXES_Q, BlockConfig,
+                                            apply_cross_block,
                                             apply_decoder_block,
+                                            cross_source_kv,
+                                            decode_cross_block,
                                             decode_decoder_block,
                                             init_block_cache, layer_slice,
+                                            make_cross_block,
                                             make_decoder_block,
+                                            prefill_cross_block,
                                             prefill_decoder_block,
                                             stack_params, tree_leaves,
                                             tree_map, unstack_params)
@@ -54,7 +68,7 @@ Tree = Dict[str, object]
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense | moe | hybrid (the ported ones)
+    family: str                      # dense|moe|hybrid|ssm|audio|vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -70,8 +84,13 @@ class ModelConfig:
     tie_embeddings: bool = False
     moe: Optional[MoEConfig] = None
     ssm: Optional[m2.SSMConfig] = None
+    xlstm: Optional[xl.XLSTMConfig] = None
     shared_attn_every: int = 0       # hybrid: shared block cadence
     shared_attn_d_ff: int = 0        # hybrid: shared block MLP width
+    cross_attn_every: int = 0        # vlm: gated cross-attn cadence
+    n_frontend_tokens: int = 0       # vlm/audio: stub frontend seq len
+    n_encoder_layers: int = 0        # audio: encoder depth
+    max_pos: int = 0                 # audio: learned decoder positions
     dtype: str = "bfloat16"
     attn_impl: str = "plain"         # plain | kernel
     use_ssm_kernel: bool = False     # hybrid: SSD scan through its kernels
@@ -146,16 +165,17 @@ def _maybe_remat(fn: Callable, remat: str) -> Callable:
                                      _save_dots))
 
 
+
+
 class Model:
     """Functional model wrapper: holds the config and the device."""
 
-    FAMILIES = ("dense", "moe", "hybrid")
+    FAMILIES = ("dense", "moe", "hybrid", "ssm", "audio", "vlm")
 
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
         if cfg.family not in self.FAMILIES:
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported to PyTorch yet; "
-                f"ported: {self.FAMILIES}")
+            raise ValueError(f"unknown family {cfg.family!r}; one of "
+                             f"{self.FAMILIES}")
         self.cfg = cfg
         self.device = resolve_device(device)
 
@@ -168,20 +188,28 @@ class Model:
         if self.device.type != "meta":
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
-        if self.cfg.family == "hybrid":
-            return self._build_hybrid(gen)
-        return self._build_decoder(gen)
+        build = {"dense": self._build_decoder, "moe": self._build_decoder,
+                 "hybrid": self._build_hybrid, "ssm": self._build_xlstm,
+                 "audio": self._build_audio, "vlm": self._build_vlm}
+        return build[self.cfg.family](gen)
+
+    def _embed_params(self, gen) -> Tree:
+        cfg = self.cfg
+        return make_embed_params(gen, cfg.padded_vocab, cfg.d_model,
+                                 cfg.tdtype, cfg.tie_embeddings, self.device)
+
+    def _norm_params(self) -> Tree:
+        cfg = self.cfg
+        return make_norm_params(cfg.d_model, cfg.norm, cfg.tdtype, self.device)
 
     def _build_decoder(self, gen) -> Tree:
         cfg, dev, dt = self.cfg, self.device, self.cfg.tdtype
         bcfg = cfg.block_cfg()
-        return {"embed": make_embed_params(gen, cfg.padded_vocab, cfg.d_model,
-                                           dt, cfg.tie_embeddings, dev),
+        return {"embed": self._embed_params(gen),
                 "layers": stack_params(
                     cfg.n_layers,
                     lambda: make_decoder_block(gen, bcfg, dt, dev)),
-                "final_norm": make_norm_params(cfg.d_model, cfg.norm, dt,
-                                               dev)}
+                "final_norm": self._norm_params()}
 
     def _build_hybrid(self, gen) -> Tree:
         cfg, dev, dt = self.cfg, self.device, self.cfg.tdtype
@@ -189,15 +217,13 @@ class Model:
         def mamba_layer():
             return {"mamba": m2.make_mamba2_params(gen, cfg.d_model, cfg.ssm,
                                                    dt, dev),
-                    "norm": make_norm_params(cfg.d_model, cfg.norm, dt, dev)}
+                    "norm": self._norm_params()}
 
-        return {"embed": make_embed_params(gen, cfg.padded_vocab, cfg.d_model,
-                                           dt, cfg.tie_embeddings, dev),
+        return {"embed": self._embed_params(gen),
                 "layers": stack_params(cfg.n_layers, mamba_layer),
                 "shared": make_decoder_block(gen, self._shared_cfg(), dt,
                                              dev),
-                "final_norm": make_norm_params(cfg.d_model, cfg.norm, dt,
-                                               dev)}
+                "final_norm": self._norm_params()}
 
     # -- shared pieces ----------------------------------------------------------
 
@@ -209,12 +235,15 @@ class Model:
             logits = logits.masked_fill(pad, -1e30)
         return logits
 
+    def _zero_aux(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.zeros((), dtype=torch.float32, device=x.device)
+
     def _decoder_forward(self, params: Tree, x: torch.Tensor):
         cfg = self.cfg
         bcfg = cfg.block_cfg()
         block = _maybe_remat(
             lambda lp, h: apply_decoder_block(lp, h, bcfg), cfg.remat)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = self._zero_aux(x)
         for lp in unstack_params(params["layers"], cfg.n_layers):
             x, a = block(lp, x)
             aux = aux + a
@@ -247,17 +276,161 @@ class Model:
         for lp, flag in zip(unstack_params(params["layers"], cfg.n_layers),
                             self._shared_flags()):
             x = body(lp, x, bool(flag))
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        return apply_norm(params["final_norm"], x, cfg.norm), aux
+        return apply_norm(params["final_norm"], x, cfg.norm), self._zero_aux(x)
+
+    # -- ssm (xlstm) -------------------------------------------------------------
+
+    def _xlstm_kinds(self):
+        """Per-layer block kind: every k-th is an sLSTM block."""
+        k = self.cfg.xlstm.slstm_every
+        return ["slstm" if (i % k) == (k - 1) else "mlstm"
+                for i in range(self.cfg.n_layers)]
+
+    def _build_xlstm(self, gen) -> Tree:
+        """The layers as a Python list of dicts, as in the reference: the
+        two kinds of block have different leaves, so they do not stack."""
+        cfg, dev, dt = self.cfg, self.device, self.cfg.tdtype
+        make = {"mlstm": xl.make_mlstm_params, "slstm": xl.make_slstm_params}
+        layers = [{"block": make[kind](gen, cfg.d_model, cfg.xlstm, dt, dev),
+                   "norm": self._norm_params()}
+                  for kind in self._xlstm_kinds()]
+        return {"embed": self._embed_params(gen), "layers": layers,
+                "final_norm": self._norm_params()}
+
+    def _xlstm_forward(self, params: Tree, x: torch.Tensor):
+        cfg = self.cfg
+
+        def layer(lp, h, kind):
+            hn = apply_norm(lp["norm"], h, cfg.norm)
+            if kind == "mlstm":
+                return h + xl.apply_mlstm(lp["block"], hn, cfg.xlstm)
+            return h + xl.apply_slstm(lp["block"], hn, cfg.xlstm)[0]
+
+        layer = _maybe_remat(layer, cfg.remat)
+        for lp, kind in zip(params["layers"], self._xlstm_kinds()):
+            x = layer(lp, x, kind)
+        return apply_norm(params["final_norm"], x, cfg.norm), self._zero_aux(x)
+
+    # -- audio (whisper encoder-decoder over stub frame embeddings) -------------
+
+    def _build_audio(self, gen) -> Tree:
+        cfg, dev, dt = self.cfg, self.device, self.cfg.tdtype
+        bcfg = cfg.block_cfg(moe=False)
+        embed = self._embed_params(gen)
+        embed["pos"] = dense_init(gen, cfg.max_pos, cfg.d_model, dt, dev,
+                                  scale=0.02)
+        return {"embed": embed,
+                "enc_layers": stack_params(
+                    cfg.n_encoder_layers,
+                    lambda: make_decoder_block(gen, bcfg, dt, dev)),
+                "enc_norm": self._norm_params(),
+                "layers": stack_params(
+                    cfg.n_layers,
+                    lambda: make_cross_block(gen, bcfg, dt, dev,
+                                             self_attn=True)),
+                "final_norm": self._norm_params()}
+
+    @staticmethod
+    def _sinusoid(seq: int, d: int, device) -> torch.Tensor:
+        pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+        dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None]
+        angle = pos / torch.pow(10000.0, dim / d)
+        return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
+
+    def _encode(self, params: Tree, frames: torch.Tensor) -> torch.Tensor:
+        """frames: (b, s_enc, d_model) precomputed frame embeddings. The
+        encoder is bidirectional: plain attention, never the causal
+        kernel."""
+        cfg = self.cfg
+        enc_cfg = cfg.block_cfg(moe=False)
+        x = frames + self._sinusoid(frames.shape[1], cfg.d_model,
+                                    frames.device).to(frames.dtype)
+        block = _maybe_remat(lambda lp, h: apply_decoder_block(
+            lp, h, enc_cfg, causal=False)[0], cfg.remat)
+        for lp in unstack_params(params["enc_layers"], cfg.n_encoder_layers):
+            x = block(lp, x)
+        return apply_norm(params["enc_norm"], x, cfg.norm)
+
+    def _embed_positions(self, params: Tree, tokens: torch.Tensor
+                         ) -> torch.Tensor:
+        """Token embeddings plus the learned positions 0..s-1."""
+        s = tokens.shape[1]
+        return embed_tokens(params["embed"], tokens) + \
+            params["embed"]["pos"][:s]
+
+    def _audio_forward(self, params: Tree, tokens: torch.Tensor,
+                       frames: torch.Tensor):
+        cfg = self.cfg
+        dec_cfg = cfg.block_cfg(moe=False)
+        enc_out = self._encode(params, frames)
+        x = self._embed_positions(params, tokens)
+        block = _maybe_remat(
+            lambda lp, h, kv: apply_cross_block(lp, h, kv, dec_cfg), cfg.remat)
+        for lp in unstack_params(params["layers"], cfg.n_layers):
+            x = block(lp, x, enc_out)
+        return apply_norm(params["final_norm"], x, cfg.norm), self._zero_aux(x)
+
+    # -- vlm (llama-3.2-vision: gated cross-attention every k layers) -----------
+
+    def _vlm_seg(self) -> Tuple[int, int]:
+        """(n_segments, self layers per segment): k-1 self layers + 1
+        cross layer per segment."""
+        cfg = self.cfg
+        k = cfg.cross_attn_every
+        if cfg.n_layers % k:
+            raise ValueError("n_layers must divide cross cadence")
+        return cfg.n_layers // k, k - 1
+
+    def _build_vlm(self, gen) -> Tree:
+        """``segments.self`` is stacked over (segments, self layers) and
+        ``segments.cross`` over segments, each into one preallocated stack
+        that the layers are drawn into in turn."""
+        cfg, dev, dt = self.cfg, self.device, self.cfg.tdtype
+        nseg, nself = self._vlm_seg()
+        bcfg = cfg.block_cfg(moe=False)
+        return {"embed": self._embed_params(gen),
+                "segments": {
+                    "self": stack_params(
+                        (nseg, nself),
+                        lambda: make_decoder_block(gen, bcfg, dt, dev)),
+                    "cross": stack_params(
+                        nseg, lambda: make_cross_block(
+                            gen, bcfg, dt, dev, gated=True,
+                            self_attn=False))},
+                "final_norm": self._norm_params()}
+
+    def _vlm_forward(self, params: Tree, x: torch.Tensor,
+                     patches: torch.Tensor):
+        cfg = self.cfg
+        bcfg = cfg.block_cfg(moe=False)
+        nseg, nself = self._vlm_seg()
+        inner = _maybe_remat(
+            lambda lp, h: apply_decoder_block(lp, h, bcfg)[0], cfg.remat)
+        for seg in unstack_params(params["segments"], nseg):
+            for lp in unstack_params(seg["self"], nself):
+                x = inner(lp, x)
+            x = apply_cross_block(seg["cross"], x, patches, bcfg, gated=True)
+        return apply_norm(params["final_norm"], x, cfg.norm), self._zero_aux(x)
 
     # -- forward / loss ----------------------------------------------------------
 
     def forward(self, params: Tree, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Full-sequence forward. Returns (logits fp32, aux loss)."""
-        x = embed_tokens(params["embed"], batch["tokens"])
-        if self.cfg.family == "hybrid":
+        """Full-sequence forward. Returns (logits fp32, aux loss). The
+        audio family also takes ``batch["frames"]``, the vision family
+        ``batch["patches"]``."""
+        family = self.cfg.family
+        tokens = batch["tokens"]
+        if family == "audio":
+            x, aux = self._audio_forward(params, tokens, batch["frames"])
+            return self._logits(params, x), aux
+        x = embed_tokens(params["embed"], tokens)
+        if family == "hybrid":
             x, aux = self._hybrid_forward(params, x)
+        elif family == "ssm":
+            x, aux = self._xlstm_forward(params, x)
+        elif family == "vlm":
+            x, aux = self._vlm_forward(params, x, batch["patches"])
         else:
             x, aux = self._decoder_forward(params, x)
         return self._logits(params, x), aux
@@ -280,25 +453,63 @@ class Model:
 
     def make_cache(self, batch: int, max_len: int) -> Tuple[Tree, Tree]:
         """Zero-initialised decode cache + its logical axes."""
-        cfg = self.cfg
-        length = torch.zeros(batch, dtype=torch.int32, device=self.device)
-        prepend = lambda axes: {k: ("layers", *a) for k, a in axes.items()}
+        cfg, dev, dt = self.cfg, self.device, self.cfg.tdtype
+        length = torch.zeros(batch, dtype=torch.int32, device=dev)
+        prepend = lambda axes, name="layers": {k: (name, *a)
+                                               for k, a in axes.items()}
+        la = ("batch",)
         if cfg.family == "hybrid":
             n_apps = int(self._shared_flags().sum())
-            one = init_block_cache(batch, max_len, self._shared_cfg(),
-                                   cfg.tdtype, self.device)
-            mamba = m2.init_mamba2_cache(batch, cfg.d_model, cfg.ssm,
-                                         cfg.tdtype, self.device)
+            one = init_block_cache(batch, max_len, self._shared_cfg(), dt, dev)
+            mamba = m2.init_mamba2_cache(batch, cfg.d_model, cfg.ssm, dt, dev)
             axes = {"mamba": {"h": ("layers", "batch", "inner", None, None),
                               "conv": ("layers", "batch", None, "inner")},
-                    "attn": prepend(BLOCK_CACHE_AXES), "length": ("batch",)}
+                    "attn": prepend(BLOCK_CACHE_AXES), "length": la}
             return {"mamba": _stacked(mamba, cfg.n_layers),
                     "attn": _stacked(one, n_apps), "length": length}, axes
-        one = init_block_cache(batch, max_len, cfg.block_cfg(), cfg.tdtype,
-                               self.device, quantized=cfg.kv_cache_quant)
+        if cfg.family == "ssm":
+            caches, axes = [], []
+            for kind in self._xlstm_kinds():
+                if kind == "mlstm":
+                    caches.append(xl.init_mlstm_cache(batch, cfg.d_model,
+                                                      cfg.xlstm, dt, dev))
+                    axes.append({"C": ("batch", "heads", None, None),
+                                 "n": ("batch", "heads", None),
+                                 "m": ("batch", "heads"),
+                                 "conv": ("batch", None, "inner")})
+                else:
+                    caches.append(xl.init_slstm_state(batch, cfg.d_model,
+                                                      cfg.xlstm, dev))
+                    axes.append({k: ("batch", "heads", None)
+                                 for k in ("c", "n", "h", "m")})
+            return ({"layers": caches, "length": length},
+                    {"layers": axes, "length": la})
+        bcfg = cfg.block_cfg(moe=False)
+        src = (batch, cfg.n_frontend_tokens, cfg.kv_heads, cfg.hd)
+        src_zeros = lambda *lead: torch.zeros((*lead, *src), dtype=dt,
+                                              device=dev)
+        if cfg.family == "audio":
+            one = dict(init_block_cache(batch, max_len, bcfg, dt, dev),
+                       xk=src_zeros(), xv=src_zeros())
+            ca = dict(BLOCK_CACHE_AXES, xk=("batch", None, None, None),
+                      xv=("batch", None, None, None))
+            return ({"layers": _stacked(one, cfg.n_layers), "length": length},
+                    {"layers": prepend(ca), "length": la})
+        if cfg.family == "vlm":
+            nseg, nself = self._vlm_seg()
+            one = init_block_cache(batch, max_len, bcfg, dt, dev)
+            axes = {"self": prepend(prepend(BLOCK_CACHE_AXES, "seg")),
+                    "cross": {"xk": ("seg", "batch", None, None, None),
+                              "xv": ("seg", "batch", None, None, None)},
+                    "length": la}
+            return {"self": _stacked(one, (nseg, nself)),
+                    "cross": {"xk": src_zeros(nseg), "xv": src_zeros(nseg)},
+                    "length": length}, axes
+        one = init_block_cache(batch, max_len, cfg.block_cfg(), dt, dev,
+                               quantized=cfg.kv_cache_quant)
         axes = {"layers": prepend(BLOCK_CACHE_AXES_Q if cfg.kv_cache_quant
                                   else BLOCK_CACHE_AXES),
-                "length": ("batch",)}
+                "length": la}
         return {"layers": _stacked(one, cfg.n_layers), "length": length}, axes
 
     def prefill(self, params: Tree, batch: Dict[str, torch.Tensor],
@@ -307,9 +518,21 @@ class Model:
         cfg = self.cfg
         tokens = batch["tokens"]
         b, s = tokens.shape
-        x = embed_tokens(params["embed"], tokens)
-        length = torch.full((b,), s, dtype=torch.int32, device=x.device)
+        length = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
         stack = lambda cs: tree_map(lambda *xs: torch.stack(xs), *cs)
+        if cfg.family == "audio":
+            bcfg = cfg.block_cfg(moe=False)
+            enc_out = self._encode(params, batch["frames"])
+            x = self._embed_positions(params, tokens)
+            caches = []
+            for i in range(cfg.n_layers):
+                x, c = prefill_cross_block(layer_slice(params["layers"], i),
+                                           x, enc_out, bcfg, max_len)
+                caches.append(c)
+            x = apply_norm(params["final_norm"], x, cfg.norm)
+            return self._logits(params, x[:, -1:]), {"layers": stack(caches),
+                                                     "length": length}
+        x = embed_tokens(params["embed"], tokens)
         if cfg.family == "hybrid":
             # mamba prefill runs the chunked scan and keeps final states;
             # shared-attn applications emit their own KV caches
@@ -328,6 +551,46 @@ class Model:
             x = apply_norm(params["final_norm"], x, cfg.norm)
             return self._logits(params, x[:, -1:]), {
                 "mamba": stack(mamba_states), "attn": stack(attn_caches),
+                "length": length}
+        if cfg.family == "ssm":
+            # every mLSTM prefill takes the chunkwise form, which returns
+            # the matrix memory; the sLSTM runs its recurrence
+            states = []
+            for lp, kind in zip(params["layers"], self._xlstm_kinds()):
+                hn = apply_norm(lp["norm"], x, cfg.norm)
+                if kind == "mlstm":
+                    y, st = xl.apply_mlstm_with_state(lp["block"], hn,
+                                                      cfg.xlstm)
+                else:
+                    y, st = xl.apply_slstm(lp["block"], hn, cfg.xlstm)
+                x = x + y
+                states.append(st)
+            x = apply_norm(params["final_norm"], x, cfg.norm)
+            return self._logits(params, x[:, -1:]), {"layers": states,
+                                                     "length": length}
+        if cfg.family == "vlm":
+            bcfg = cfg.block_cfg(moe=False)
+            patches = batch["patches"]
+            nseg, nself = self._vlm_seg()
+            self_kv, xks, xvs = [], [], []
+            for i in range(nseg):
+                sp = layer_slice(params["segments"], i)
+                seg_kv = []
+                for j in range(nself):
+                    x, _, c = prefill_decoder_block(
+                        layer_slice(sp["self"], j), x, bcfg, max_len)
+                    seg_kv.append(c)
+                self_kv.append(stack(seg_kv))
+                xk, xv = cross_source_kv(sp["cross"]["cross_attn"], patches,
+                                         bcfg)
+                xks.append(xk)
+                xvs.append(xv)
+                x = apply_cross_block(sp["cross"], x, patches, bcfg,
+                                      gated=True)
+            x = apply_norm(params["final_norm"], x, cfg.norm)
+            return self._logits(params, x[:, -1:]), {
+                "self": stack(self_kv),
+                "cross": {"xk": torch.stack(xks), "xv": torch.stack(xvs)},
                 "length": length}
         bcfg = cfg.block_cfg()
         caches = []
@@ -361,6 +624,7 @@ class Model:
         cfg = self.cfg
         length = cache["length"]
         x = embed_tokens(params["embed"], tokens)
+        out = dict(cache, length=length + 1)
         if cfg.family == "hybrid":
             sb_cfg = self._shared_cfg()
             app = 0
@@ -377,19 +641,47 @@ class Model:
                         params["shared"], x, layer_slice(cache["attn"], app),
                         length, sb_cfg)
                     app += 1
-            x = apply_norm(params["final_norm"], x, cfg.norm)
-            return self._logits(params, x), dict(cache, length=length + 1)
-        bcfg = cfg.block_cfg()
-        for i in range(cfg.n_layers):
-            x, _ = decode_decoder_block(layer_slice(params["layers"], i), x,
-                                        layer_slice(cache["layers"], i),
-                                        length, bcfg)
+        elif cfg.family == "ssm":
+            decode = {"mlstm": xl.decode_mlstm, "slstm": xl.decode_slstm}
+            for lp, kind, st in zip(params["layers"], self._xlstm_kinds(),
+                                    cache["layers"]):
+                hn = apply_norm(lp["norm"], x, cfg.norm)
+                y, _ = decode[kind](lp["block"], hn, st, cfg.xlstm)
+                x = x + y
+        elif cfg.family == "audio":
+            bcfg = cfg.block_cfg(moe=False)
+            pos = length.clamp(0, cfg.max_pos - 1).long()
+            x = x + params["embed"]["pos"][pos][:, None, :]
+            for i in range(cfg.n_layers):
+                x, _ = decode_cross_block(layer_slice(params["layers"], i), x,
+                                          layer_slice(cache["layers"], i),
+                                          length, bcfg)
+        elif cfg.family == "vlm":
+            bcfg = cfg.block_cfg(moe=False)
+            nseg, nself = self._vlm_seg()
+            for i in range(nseg):
+                sp = layer_slice(params["segments"], i)
+                sc = layer_slice(cache["self"], i)
+                for j in range(nself):
+                    x, _ = decode_decoder_block(layer_slice(sp["self"], j), x,
+                                                layer_slice(sc, j), length,
+                                                bcfg)
+                x, _ = decode_cross_block(
+                    sp["cross"], x, layer_slice(cache["cross"], i), length,
+                    bcfg, gated=True)
+        else:
+            bcfg = cfg.block_cfg()
+            for i in range(cfg.n_layers):
+                x, _ = decode_decoder_block(layer_slice(params["layers"], i),
+                                            x, layer_slice(cache["layers"], i),
+                                            length, bcfg)
         x = apply_norm(params["final_norm"], x, cfg.norm)
-        return self._logits(params, x), {"layers": cache["layers"],
-                                         "length": length + 1}
+        return self._logits(params, x), out
 
 
-def _stacked(one: Tree, n: int) -> Tree:
-    """Zeros of ``n`` copies of the cache ``one`` on a leading axis."""
-    return tree_map(lambda t: torch.zeros((n, *t.shape), dtype=t.dtype,
+def _stacked(one: Tree, n) -> Tree:
+    """Zeros of ``n`` copies of the cache ``one`` on a leading axis (on
+    leading axes, for a tuple ``n``)."""
+    lead = (n,) if isinstance(n, int) else tuple(n)
+    return tree_map(lambda t: torch.zeros((*lead, *t.shape), dtype=t.dtype,
                                           device=t.device), one)

@@ -1,11 +1,16 @@
-"""Decoder block (counterpart of ``repro.models.transformer``).
+"""Decoder, cross-attention and encoder blocks (counterpart of
+``repro.models.transformer``).
 
 A block is a pre-norm attention sublayer plus a pre-norm FFN sublayer
 (an MLP, or a mixture of experts), with residuals. Entry points:
 
-  * ``apply_decoder_block``   — full sequence (forward),
-  * ``prefill_decoder_block`` — full sequence that also emits the cache,
-  * ``decode_decoder_block``  — one-token step against the cache.
+  * ``apply_*``   — full sequence (forward, encoder),
+  * ``prefill_*`` — full sequence that also emits the cache,
+  * ``decode_*``  — one-token step against the cache.
+
+A cross block (whisper's decoder layer, llama-vision's gated layer)
+attends to encoder or image states with plain attention, as in the
+reference; only causal self-attention takes the flash kernel.
 
 Parameters of a stack of blocks carry a leading ``layers`` axis; the
 model loops over it where the reference scans. The KV cache is kept in
@@ -16,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.models.attention import (_project_qkv, _sdpa_plain,
@@ -50,30 +56,38 @@ class BlockConfig:
 # --------------------------------------------------------------------------
 
 def tree_map(fn: Callable, *trees):
-    """Apply ``fn`` leaf-wise over nested dicts of the same structure."""
+    """Apply ``fn`` leaf-wise over nested dicts and lists of the same
+    structure (a list is a node, as in a JAX pytree; a tuple is a leaf)."""
     first = trees[0]
     if isinstance(first, dict):
         return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, list):
+        return [tree_map(fn, *parts) for parts in zip(*trees)]
     return fn(*trees)
 
 
 def tree_leaves(tree) -> List[torch.Tensor]:
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    if isinstance(tree, list):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
 
 
-def stack_params(n: int, maker: Callable[[], Tree]) -> Tree:
+def stack_params(n, maker: Callable[[], Tree]) -> Tree:
     """``n`` independently initialised copies of ``maker()`` stacked on a
-    leading ``layers`` axis. Each layer is drawn in turn and copied into
-    its row of a preallocated stack, so that init holds one layer beyond
-    the stack, not all n twice over."""
-    first = maker()
-    stack = tree_map(lambda t: torch.empty((n, *t.shape), dtype=t.dtype,
-                                           device=t.device), first)
-    tree_map(lambda row, t: row[0].copy_(t), stack, first)
-    for i in range(1, n):
-        tree_map(lambda row, t: row[i].copy_(t), stack, maker())
+    leading ``layers`` axis; ``n`` may be a tuple of sizes, for stacks
+    nested in stacks (``(nseg, nself)``). Each layer is drawn in turn and
+    copied into its row of a preallocated stack, so that init holds one
+    layer beyond the stack, not all of them twice over."""
+    shape = (n,) if isinstance(n, int) else tuple(n)
+    stack = None
+    for idx in np.ndindex(*shape):
+        layer = maker()
+        if stack is None:
+            stack = tree_map(lambda t: torch.empty(
+                (*shape, *t.shape), dtype=t.dtype, device=t.device), layer)
+        tree_map(lambda row, t: row[idx].copy_(t), stack, layer)
     return stack
 
 
@@ -246,3 +260,163 @@ def decode_decoder_block(params: Tree, x: torch.Tensor, cache: Dict,
     x = x + o.reshape(b, 1, cfg.n_heads * cfg.head_dim) @ params["attn"]["wo"]
     f, _ = _ffn(params, apply_norm(params["norm2"], x, cfg.norm), cfg)
     return x + f, cache
+
+
+# --------------------------------------------------------------------------
+# cross-attention block (whisper decoder / llama-vision gated layers)
+# --------------------------------------------------------------------------
+
+def make_cross_block(gen, cfg: BlockConfig, dtype, device, *,
+                     gated: bool = False, self_attn: bool = True) -> Tree:
+    """Cross-attention block. ``self_attn=True``: a whisper decoder layer
+    (self + cross + MLP); ``gated=True``: a llama-vision gated layer
+    (cross + MLP with tanh-gated residuals, no self-attention). The gates
+    start at 0, so a fresh gated layer adds nothing."""
+    params: Tree = {}
+    if self_attn:
+        params["self_attn"] = make_attention_params(
+            gen, cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim, dtype,
+            device, qkv_bias=cfg.qkv_bias)
+        params["norm_self"] = make_norm_params(cfg.d_model, cfg.norm, dtype,
+                                               device)
+    params["cross_attn"] = make_attention_params(
+        gen, cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim, dtype,
+        device, qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm and gated)
+    params["norm_cross"] = make_norm_params(cfg.d_model, cfg.norm, dtype,
+                                            device)
+    params["mlp"] = make_mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.mlp,
+                                    dtype, device)
+    params["norm_mlp"] = make_norm_params(cfg.d_model, cfg.norm, dtype,
+                                          device)
+    if gated:
+        params["gate_attn"] = torch.zeros((), dtype=torch.float32,
+                                          device=device)
+        params["gate_mlp"] = torch.zeros((), dtype=torch.float32,
+                                         device=device)
+    return params
+
+
+def _cross_attend(params: Tree, h: torch.Tensor, kv: torch.Tensor,
+                  cfg: BlockConfig) -> torch.Tensor:
+    """h: (b, s, d) queries; kv: (b, skv, d) encoder or image states. No
+    rope, no mask, and plain attention whatever ``cfg.attn_impl``, as in
+    the reference."""
+    b, s, _ = h.shape
+    q, k, v = _project_qkv(params, h, kv, cfg.n_heads, cfg.kv_heads,
+                           cfg.head_dim, None, None, None)
+    o = sdpa(q, k, v, causal=False, impl="plain")
+    return o.reshape(b, s, -1) @ params["wo"]
+
+
+def _cross_attend_cached(params: Tree, h: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor, cfg: BlockConfig) -> torch.Tensor:
+    """Decode path: the source's K/V were projected once, at prefill."""
+    b, s, _ = h.shape
+    q, _, _ = _project_qkv(params, h, h[:, :1], cfg.n_heads, cfg.kv_heads,
+                           cfg.head_dim, None, None, None)
+    o = _sdpa_plain(q, k, v, causal=False)
+    return o.reshape(b, s, -1) @ params["wo"]
+
+
+def cross_source_kv(params: Tree, kv_x: torch.Tensor, cfg: BlockConfig
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cross-attention K/V of the encoder or image states."""
+    _, k, v = _project_qkv(params, kv_x[:, :1], kv_x, cfg.n_heads,
+                           cfg.kv_heads, cfg.head_dim, None, None, None)
+    return k, v
+
+
+def _gate(params: Tree, name: str, x: torch.Tensor) -> torch.Tensor:
+    return torch.tanh(params[name]).to(x.dtype) * x
+
+
+def _self_attend(params: Tree, x: torch.Tensor, cfg: BlockConfig):
+    """The causal self-attention sublayer of a whisper decoder layer;
+    returns (x, k, v)."""
+    b, s, _ = x.shape
+    h = apply_norm(params["norm_self"], x, cfg.norm)
+    positions = _positions(b, s, x.device)
+    q, k, v = _project_qkv(params["self_attn"], h, h, cfg.n_heads,
+                           cfg.kv_heads, cfg.head_dim, positions, positions,
+                           cfg.rope_theta)
+    o = sdpa(q, k, v, causal=True, impl=cfg.attn_impl)
+    return x + o.reshape(b, s, -1) @ params["self_attn"]["wo"], k, v
+
+
+def _cross_and_mlp(params: Tree, x: torch.Tensor, c: torch.Tensor,
+                   cfg: BlockConfig, gated: bool) -> torch.Tensor:
+    """The residual of the cross-attention output ``c``, then the MLP
+    sublayer, each tanh-gated in a gated block."""
+    x = x + (_gate(params, "gate_attn", c) if gated else c)
+    f = apply_mlp(params["mlp"], apply_norm(params["norm_mlp"], x, cfg.norm),
+                  cfg.mlp)
+    return x + (_gate(params, "gate_mlp", f) if gated else f)
+
+
+def apply_cross_block(params: Tree, x: torch.Tensor, kv_x: torch.Tensor,
+                      cfg: BlockConfig, *, gated: bool = False
+                      ) -> torch.Tensor:
+    """Full-sequence cross block (forward / prefill)."""
+    if "self_attn" in params:
+        x, _, _ = _self_attend(params, x, cfg)
+    c = _cross_attend(params["cross_attn"],
+                      apply_norm(params["norm_cross"], x, cfg.norm), kv_x, cfg)
+    return _cross_and_mlp(params, x, c, cfg, gated)
+
+
+def prefill_cross_block(params: Tree, x: torch.Tensor, kv_x: torch.Tensor,
+                        cfg: BlockConfig, max_len: int
+                        ) -> Tuple[torch.Tensor, Dict]:
+    """A whisper decoder layer's prefill (``Model._prefill_cross`` in the
+    reference): the full-sequence block that also returns its cache, the
+    causal self K/V padded to ``max_len`` and the source's K/V."""
+    b, s, _ = x.shape
+    x, k, v = _self_attend(params, x, cfg)
+    cache = init_block_cache(b, max_len, cfg, k.dtype, x.device)
+    cache["k"][:, :s] = k
+    cache["v"][:, :s] = v
+    cache["xk"], cache["xv"] = cross_source_kv(params["cross_attn"], kv_x,
+                                               cfg)
+    c = _cross_attend(params["cross_attn"],
+                      apply_norm(params["norm_cross"], x, cfg.norm), kv_x, cfg)
+    return _cross_and_mlp(params, x, c, cfg, False), cache
+
+
+def decode_cross_block(params: Tree, x: torch.Tensor, cache: Dict,
+                       length: torch.Tensor, cfg: BlockConfig, *,
+                       gated: bool = False) -> Tuple[torch.Tensor, Dict]:
+    """One-token step; ``cache`` holds the self K/V (a whisper layer),
+    written in place at ``length`` as in :func:`decode_decoder_block`,
+    and the source's K/V projected at prefill."""
+    if "self_attn" in params:
+        b = x.shape[0]
+        h = apply_norm(params["norm_self"], x, cfg.norm)
+        positions = length[:, None]
+        q, k_new, v_new = _project_qkv(params["self_attn"], h, h,
+                                       cfg.n_heads, cfg.kv_heads,
+                                       cfg.head_dim, positions, positions,
+                                       cfg.rope_theta)
+        max_len = cache["k"].shape[1]
+        rows = torch.arange(b, device=x.device)
+        at = length.clamp(max=max_len - 1)
+        cache["k"][rows, at] = k_new[:, 0]
+        cache["v"][rows, at] = v_new[:, 0]
+        valid = (torch.arange(max_len, device=x.device)[None, :]
+                 <= length[:, None])
+        o = _sdpa_plain(q, cache["k"], cache["v"], causal=False,
+                        kv_len_mask=valid)
+        x = x + o.reshape(b, 1, -1) @ params["self_attn"]["wo"]
+    c = _cross_attend_cached(params["cross_attn"],
+                             apply_norm(params["norm_cross"], x, cfg.norm),
+                             cache["xk"], cache["xv"], cfg)
+    return _cross_and_mlp(params, x, c, cfg, gated), cache
+
+
+# --------------------------------------------------------------------------
+# encoder block (whisper encoder: bidirectional self-attention + MLP)
+# --------------------------------------------------------------------------
+
+def apply_encoder_block(params: Tree, x: torch.Tensor, cfg: BlockConfig
+                        ) -> torch.Tensor:
+    out, _ = apply_decoder_block(params, x, cfg, causal=False)
+    return out

@@ -34,6 +34,10 @@ def _insert_slot(cache, slot_cache, slot: int, cache_axes) -> None:
         for k in cache:
             _insert_slot(cache[k], slot_cache[k], slot, cache_axes[k])
         return
+    if isinstance(cache, list):           # the xLSTM layers' states
+        for c, s, a in zip(cache, slot_cache, cache_axes):
+            _insert_slot(c, s, slot, a)
+        return
     if cache.ndim and "batch" in cache_axes:
         axis = cache_axes.index("batch")
         cache.select(axis, slot).copy_(slot_cache.select(axis, 0))

@@ -8,8 +8,9 @@ is written last, so a crash mid-save never corrupts the latest
 checkpoint: restore picks the highest *complete* step.
 
 Leaf paths are spelled as ``jax.tree_util.keystr`` spells them
-(``['params']['layers']['wq']``), in its sorted-key order, so either
-package reads the other's files. A bfloat16 leaf is stored as the
+(``['params']['layers']['wq']``; a list index as ``[0]``, as in
+``['params']['layers'][0]['block']['up']``), in its sorted-key order, so
+either package reads the other's files. A bfloat16 leaf is stored as the
 reference stores it: its raw 2-byte words under the ``.npy`` descr
 ``<V2``, with ``"dtype": "bfloat16"`` in the manifest. Restore rebuilds
 it from those words (viewed as int16, then as ``torch.bfloat16``),
@@ -40,6 +41,9 @@ def _flatten_with_paths(tree, prefix: str = "") -> List[Tuple[str, object]]:
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree)
                 for leaf in _flatten_with_paths(tree[k], f"{prefix}[{k!r}]")]
+    if isinstance(tree, list):
+        return [leaf for i, v in enumerate(tree)
+                for leaf in _flatten_with_paths(v, f"{prefix}[{i}]")]
     return [(prefix, tree)]
 
 
@@ -169,6 +173,8 @@ def restore_checkpoint(directory: str, like: Tree,
     def rebuild(tree, prefix: str = ""):
         if isinstance(tree, dict):
             return {k: rebuild(v, f"{prefix}[{k!r}]") for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [rebuild(v, f"{prefix}[{i}]") for i, v in enumerate(tree)]
         return load(prefix, tree)
 
     try:

@@ -9,7 +9,10 @@ Each (seed, step, host) triple keys its own numpy generator, so
   * nothing is read from disk.
 
 The stream is not the reference's (``jax.random``); parity tests feed
-both packages the reference's batches.
+both packages the reference's batches. The audio and vision frontends are
+stubs, as in the reference: ``frames``/``patches`` are gaussian
+embeddings of the configured shape, drawn from the same stream after the
+tokens.
 """
 from __future__ import annotations
 
@@ -28,19 +31,32 @@ class SyntheticDataset:
     seq_len: int
     global_batch: int
     seed: int = 0
+    family: str = "dense"
+    n_frontend_tokens: int = 0
+    d_model: int = 0
+    dtype: str = "bfloat16"
     #: where the batches land; None is the CUDA card, as for the model
     device: DeviceLike = None
 
     def batch_at(self, step: int, *, host_index: int = 0,
                  host_count: int = 1) -> Dict[str, torch.Tensor]:
         """This host's shard of the global batch of ``step``: int64
-        ``tokens`` and ``labels`` (the tokens shifted by one)."""
+        ``tokens`` and ``labels`` (the tokens shifted by one), and for the
+        audio / vision families ``frames`` / ``patches`` of shape
+        (b, n_frontend_tokens, d_model) in ``dtype``."""
         if self.global_batch % host_count:
             raise ValueError(f"global batch {self.global_batch} does not "
                              f"split over {host_count} hosts")
         b = self.global_batch // host_count
+        device = resolve_device(self.device)
         rng = np.random.default_rng((self.seed, step, host_index))
         tokens = torch.from_numpy(
-            rng.integers(0, self.vocab, (b, self.seq_len + 1)))
-        tokens = tokens.to(resolve_device(self.device))
-        return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+            rng.integers(0, self.vocab, (b, self.seq_len + 1))).to(device)
+        batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+        stub = {"audio": "frames", "vlm": "patches"}.get(self.family)
+        if stub is not None:
+            emb = rng.standard_normal((b, self.n_frontend_tokens,
+                                       self.d_model), dtype=np.float32)
+            batch[stub] = torch.from_numpy(emb).to(device,
+                                                   getattr(torch, self.dtype))
+        return batch

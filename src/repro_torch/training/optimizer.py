@@ -85,7 +85,8 @@ def adamw_update(state: TrainState, grads: Tree, cfg: AdamWConfig
 
         out = tree_map(upd, state["params"], grads, state["m"], state["v"])
         part = lambda i: tree_map(lambda t: t[i], out)
-        # tree_map recurses into dicts only, so the 3-tuples are leaves
+        # tree_map recurses into dicts and lists only, so the 3-tuples
+        # are leaves
         new_state = {"params": part(0), "m": part(1), "v": part(2),
                      "step": step}
     return new_state, {"lr": lr, "grad_norm": gnorm}

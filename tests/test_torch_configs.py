@@ -17,7 +17,8 @@ def _assert_same(port, ref):
         got, want = getattr(port, f.name), getattr(ref, f.name)
         if f.name == "attn_impl":
             want = _IMPL[want]
-        if f.name in ("ssm", "moe") and want is not None:  # own classes
+        if f.name in ("ssm", "moe", "xlstm") and want is not None:
+            # the port's own classes
             got, want = dataclasses.asdict(got), dataclasses.asdict(want)
         assert got == want, f.name
     assert port.hd == ref.hd
@@ -26,15 +27,18 @@ def _assert_same(port, ref):
 
 
 def test_port_registry_is_the_dense_family():
-    """The registry holds the ported families, dense, moe and hybrid; an
-    arch of another family raises."""
-    assert sorted(ARCH_IDS) == sorted(
-        a for a in ref_registry.ARCH_IDS
-        if ref_registry.get_config(a).family in ("dense", "moe", "hybrid"))
-    assert get_config("zamba2-1.2b").family == "hybrid"
-    assert get_config("qwen2-moe-a2.7b").family == "moe"
-    with pytest.raises(KeyError, match="not ported"):
-        get_config("xlstm-350m")
+    """The registry holds every arch of the reference's registry (ten),
+    in all six of its families (the name dates from the first slice, which held the dense
+    family alone); an unknown arch raises."""
+    assert ARCH_IDS == list(ref_registry.ARCH_IDS)
+    assert len(ARCH_IDS) == 10
+    assert {get_config(a).family for a in ARCH_IDS} == {
+        "dense", "moe", "hybrid", "ssm", "audio", "vlm"}
+    assert get_config("xlstm-350m").family == "ssm"
+    assert get_config("whisper-tiny").family == "audio"
+    assert get_config("llama-3.2-vision-90b").family == "vlm"
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("not-an-arch")
 
 
 @pytest.mark.parametrize("arch", sorted(ARCH_IDS))

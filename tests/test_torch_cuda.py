@@ -44,7 +44,10 @@ def _normal(rng, shape, dtype, device):
 @pytest.mark.parametrize("b,sq,h,hkv,d", [
     (2, 256, 4, 2, 64), (1, 512, 8, 2, 128), (2, 128, 4, 4, 32),
     (1, 256, 6, 1, 64), (1, 37, 16, 8, 128), (4, 200, 16, 8, 128),
-    (1, 1000, 16, 8, 128), (1, 512, 32, 32, 64)])
+    (1, 1000, 16, 8, 128), (1, 512, 32, 32, 64),
+    # whisper-tiny's decoder prefill (6/6, d=64) at its longest prompt, and
+    # llama-3.2-vision's self layers (64/8, d=128: a GQA group of 8)
+    (1, 448, 6, 6, 64), (1, 512, 64, 8, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(cuda, b, sq, h, hkv, d, dtype):
     rng = np.random.default_rng(0)
@@ -454,6 +457,46 @@ def test_int8_decode_on_the_card_matches_cpu(cuda, arch):
         diff = gcache["layers"][name].cpu().int() - cache["layers"][name].int()
         assert int(diff.abs().max()) <= 1, name
     for i in range(32, 40):
+        want, cache = cpu.decode_step(params, cache, tokens[:, i:i + 1])
+        got, gcache = gpu.decode_step(gparams, gcache,
+                                      tokens[:, i:i + 1].to(cuda))
+        _close(got, want, DEC_TOL)
+
+
+# --------------------------------------------------------------------------
+# the xLSTM, whisper and llama-vision families on the card
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "whisper-tiny",
+                                  "llama-3.2-vision-90b"])
+@pytest.mark.parametrize("impl", ["plain", "kernel"])
+def test_reduced_new_family_on_the_card_matches_cpu(cuda, arch, impl):
+    """Forward logits, prefill and decode of a reduced model (fp32) on the
+    card against the same model on the CPU; the vision model's gates set
+    to 0.5 and -0.75 (at init they are 0, and the cross path would add
+    nothing), the audio / vision stub input drawn from a seed."""
+    cpu, params, gpu, gparams = _on_both(arch, cuda, attn_impl=impl)
+    if "segments" in params:
+        for tree in (params, gparams):
+            tree["segments"]["cross"]["gate_attn"].fill_(0.5)
+            tree["segments"]["cross"]["gate_mlp"].fill_(-0.75)
+    cfg = cpu.cfg
+    rng = np.random.default_rng(8)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 64)))
+    extra = {}
+    name = {"audio": "frames", "vlm": "patches"}.get(cfg.family)
+    if name is not None:
+        extra[name] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32))
+    on = lambda batch, dev: {k: v.to(dev) for k, v in batch.items()}
+    want, _ = cpu.forward(params, {"tokens": tokens, **extra})
+    got, _ = gpu.forward(gparams, on({"tokens": tokens, **extra}, cuda))
+    _close(got, want, MODEL_TOL)
+    batch = {"tokens": tokens[:, :60], **extra}
+    want, cache = cpu.prefill(params, batch, max_len=64)
+    got, gcache = gpu.prefill(gparams, on(batch, cuda), max_len=64)
+    _close(got, want, DEC_TOL)
+    for i in range(60, 64):
         want, cache = cpu.decode_step(params, cache, tokens[:, i:i + 1])
         got, gcache = gpu.decode_step(gparams, gcache,
                                       tokens[:, i:i + 1].to(cuda))

@@ -1,4 +1,6 @@
-"""The port's dense model against the JAX model on bridged weights."""
+"""The port's models against the JAX models on bridged weights: every
+arch of the registry at its reduced size, the audio and vision families
+with their frames / patches, the vision model with non-zero gates."""
 import dataclasses
 
 import numpy as np
@@ -31,6 +33,23 @@ def _drop_free(cfg):
         cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
 
 
+#: the vision model's cross-layer gates for every test: they start at 0
+#: and tanh(0) = 0, so on fresh weights a broken cross path would add
+#: nothing and pass unseen
+GATES = {"gate_attn": 0.5, "gate_mlp": -0.75}
+
+
+def open_gates(ref_params):
+    """The reference's vlm params with GATES set in every segment; other
+    families' params as they are."""
+    if "segments" not in ref_params:
+        return ref_params
+    seg = ref_params["segments"]
+    cross = dict(seg["cross"], **{k: jnp.full_like(seg["cross"][k], v)
+                                  for k, v in GATES.items()})
+    return dict(ref_params, segments=dict(seg, cross=cross))
+
+
 def _pair(arch, impl="plain", drop_free=False, **overrides):
     """(port model, reference model, port params, reference params)."""
     ref_cfg = ref_registry.reduced_config(arch, attn_impl=_REF_IMPL[impl],
@@ -39,7 +58,7 @@ def _pair(arch, impl="plain", drop_free=False, **overrides):
     if drop_free:
         ref_cfg, cfg = _drop_free(ref_cfg), _drop_free(cfg)
     ref_model = RefModel(ref_cfg)
-    ref_params = ref_model.init(jax.random.key(0))
+    ref_params = open_gates(ref_model.init(jax.random.key(0)))
     port = Model(cfg, device="cpu")
     params = bridge.from_reference(jax.tree.map(np.asarray, ref_params),
                                    device="cpu")
@@ -48,6 +67,24 @@ def _pair(arch, impl="plain", drop_free=False, **overrides):
 
 def _tokens(cfg, b, s, seed=1):
     return np.random.default_rng(seed).integers(0, cfg.vocab, (b, s))
+
+
+def _extra(cfg, b, seed=2):
+    """The stub frontend's input of the audio (``frames``) or vision
+    (``patches``) family as numpy, or nothing."""
+    name = {"audio": "frames", "vlm": "patches"}.get(cfg.family)
+    if name is None:
+        return {}
+    shape = (b, cfg.n_frontend_tokens, cfg.d_model)
+    return {name: np.random.default_rng(seed).standard_normal(
+        shape).astype(np.float32)}
+
+
+def _batches(cfg, tokens, extra):
+    """The same inputs for the port (torch) and the reference (jax)."""
+    arrays = {"tokens": tokens, **extra}
+    return ({k: torch.from_numpy(v) for k, v in arrays.items()},
+            {k: jnp.asarray(v) for k, v in arrays.items()})
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -66,10 +103,10 @@ def test_bridge_round_trip(dtype):
 @pytest.mark.parametrize("impl", ["plain", "kernel"])
 def test_forward_matches_reference(arch, impl):
     port, ref_model, params, ref_params = _pair(arch, impl)
-    tokens = _tokens(port.cfg, 2, 64)
-    want, want_aux = ref_model.forward(ref_params,
-                                       {"tokens": jnp.asarray(tokens)})
-    got, aux = port.forward(params, {"tokens": torch.from_numpy(tokens)})
+    tb, jb = _batches(port.cfg, _tokens(port.cfg, 2, 64),
+                      _extra(port.cfg, 2))
+    want, want_aux = ref_model.forward(ref_params, jb)
+    got, aux = port.forward(params, tb)
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD_TOL)
     if port.cfg.moe is None:
@@ -98,12 +135,14 @@ def test_prefill_decode_matches_reference_and_forward(arch):
     (tests/test_torch_moe.py holds the dropping case to the reference)."""
     port, ref_model, params, ref_params = _pair(arch, drop_free=True)
     b, k, n = 2, 12, 16
-    tokens = _tokens(port.cfg, b, n)
-    tt, jt = torch.from_numpy(tokens), jnp.asarray(tokens)
-    full, _ = port.forward(params, {"tokens": tt})
+    tb, jb = _batches(port.cfg, _tokens(port.cfg, b, n), _extra(port.cfg, b))
+    tt, jt = tb["tokens"], jb["tokens"]
+    full, _ = port.forward(params, tb)
 
-    got, cache = port.prefill(params, {"tokens": tt[:, :k]}, max_len=n + 4)
-    want, ref_cache = ref_model.prefill(ref_params, {"tokens": jt[:, :k]},
+    got, cache = port.prefill(params, dict(tb, tokens=tt[:, :k]),
+                              max_len=n + 4)
+    want, ref_cache = ref_model.prefill(ref_params,
+                                        dict(jb, tokens=jt[:, :k]),
                                         max_len=n + 4)
     np.testing.assert_allclose(got[:, 0].numpy(), np.asarray(want[:, 0]),
                                **DEC_TOL)
@@ -140,8 +179,11 @@ def test_decode_on_a_bridged_reference_cache():
 
 
 def test_unported_family_and_int8_cache_raise():
-    """A family not ported yet raises; the int8 cache, ported since, is
-    held in tests/test_torch_kv_int8.py."""
+    """Every family of the reference is ported, so only an unknown family
+    raises (the name dates from when three were not ported; the int8
+    cache, ported since, is held in tests/test_torch_kv_int8.py)."""
     cfg = reduced_config("qwen3-0.6b")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Model(dataclasses.replace(cfg, family="ssm"), device="cpu")
+    assert Model.FAMILIES == ("dense", "moe", "hybrid", "ssm", "audio",
+                              "vlm")
+    with pytest.raises(ValueError, match="unknown family"):
+        Model(dataclasses.replace(cfg, family="rnn"), device="cpu")
