@@ -55,12 +55,30 @@ Phases, in order; any failure exits non-zero:
      granite-moe-3b-a800m at full width and 4 layers, whose loss must
      fall and whose gradients must repeat bit for bit from one state; and
      flash attention refusing autograd on the card;
-  7. one JSON line of serving numbers (memory, int8), one of training
-     numbers, one of per-kernel numbers and, last, the device line.
+  7. AARC on the card, through the port's own copies of the paper's
+     search stack (no kernel of the port may launch): the measured
+     oracle's unit (a 128^2 fp32 matmul timed by CUDA events; first call
+     and steady median), the Graph-Centric Scheduler over it and over the
+     analytic surface on chatbot, ml_pipeline and video_analysis at
+     their SLOs (every schedule within its SLO; the analytic ones equal
+     to the CPU's bit for bit); the fleet engine's fast-plane sweep at
+     64 candidates x 16,384 instances of a 12-node layered DAG in fp64
+     (about 0.1 GB of finish state), bit for bit against the numpy
+     sweep, timed beside it, its launches counted; the stage-graph
+     planner on the H100 oracle (aarc, maff, bo) for qwen3-0.6b and
+     llama-3.2-vision-90b at train_4k, SLO 1.5 x the all-resources step;
+     and the training launcher with --autotune-slo (full-size
+     qwen3-0.6b, 2 steps of 8 x 512, the planner's remat level, finite
+     losses);
+  8. one JSON line of serving numbers (memory, int8), one of training
+     numbers, one of per-kernel numbers, one of AARC numbers and, last,
+     the device line.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import re
 import shutil
@@ -75,7 +93,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs import get_config, reduced_config
+from repro_torch.autotune import plan
+from repro_torch.configs import SHAPES, get_config, reduced_config
+from repro_torch.core import Environment, GraphCentricScheduler, Workflow
+from repro_torch.core.engine import fast_plane_sweep, numpy_plane_sweep
 from repro_torch.distributed import InjectedFault, ResilientLoop
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -88,11 +109,14 @@ from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.kernel import ssd_inter_cuda, ssd_intra_cuda
 from repro_torch.kernels.ssd_scan.ref import (ssd_inter_scan_ref,
                                               ssd_intra_ref, ssd_scan_ref)
+from repro_torch.launch import train as launch_train
 from repro_torch.models.attention import sdpa
 from repro_torch.models import moe
 from repro_torch.models.mamba2 import chunk_recurrence
 from repro_torch.models.model import Model
 from repro_torch.models.transformer import layer_slice, tree_leaves, tree_map
+from repro_torch.serverless import (WORKLOADS, SimulatedPlatform,
+                                    TorchMeasuredOracle, workload_slo)
 from repro_torch.serving import RequestQueue, ServeEngine
 from repro_torch.training import (AdamWConfig, SyntheticDataset, adamw_init,
                                   make_train_step)
@@ -159,6 +183,26 @@ GATES = {"gate_attn": 0.5, "gate_mlp": -0.75}
 #: stops at 448 positions)
 STUB = {"audio": "frames", "vlm": "patches"}
 PROFILE_PROMPT = {"whisper-tiny": 448}
+#: AARC on the card. The analytic scheduler's (cost, e2e, samples) on the
+#: paper's three workflows at their SLOs, as the CPU computes them (and as
+#: tests/test_torch_aarc.py holds them to the reference's): the card's
+#: host must give the same bits
+ANALYTIC_SCHEDULES = {
+    "chatbot": (127.59039999999999, 69.63333333333333, 83),
+    "ml_pipeline": (352.8281631449631, 119.89318181818182, 77),
+    "video_analysis": (4798.680828070175, 364.4813596491228, 54)}
+#: the measured oracle's steady unit: the median of this many calls
+UNIT_CALLS = 50
+#: the fast-plane sweep at fleet size: candidates x instances over a seeded
+#: layered DAG (nodes, layers, edge probability), fp64, timed over repeats
+SWEEP_C, SWEEP_I, SWEEP_V, SWEEP_LAYERS, SWEEP_P_EDGE = 64, 16_384, 12, 4, 0.3
+SWEEP_REPEATS = 5
+#: the planner's models at train_4k, the SLO over the all-resources step
+#: (examples/torch_autotune_stage_graph.py), and the launcher's run
+PLAN_ARCHS = ("qwen3-0.6b", "llama-3.2-vision-90b")
+PLAN_SLACK = 1.5
+LAUNCH_ARGS = ["--arch", "qwen3-0.6b", "--steps", "2", "--batch", "8",
+               "--seq", "512", "--log-every", "1"]
 
 
 def check(ok: bool, what: str) -> None:
@@ -1129,6 +1173,215 @@ def repair_on_card():
     return True
 
 
+# --------------------------------------------------------------------------
+# phase 7: AARC on the card
+# --------------------------------------------------------------------------
+
+def schedule_paper_workflows(make_env):
+    """Algorithm 1 on the paper's three workflows at their SLOs, each in
+    a fresh environment from ``make_env``; {name: numbers}."""
+    out = {}
+    for name in WORKLOADS:
+        slo = workload_slo(name)
+        env = make_env()
+        t0 = time.perf_counter()
+        r = GraphCentricScheduler(env).schedule(WORKLOADS[name](), slo)
+        wall = time.perf_counter() - t0
+        check(r.e2e_runtime <= slo, f"{name}: e2e {r.e2e_runtime} within "
+                                    f"the SLO {slo}")
+        out[name] = dict(slo_s=slo, n_samples=r.n_samples, cost=r.cost,
+                         e2e_s=r.e2e_runtime, search_wall_s=wall,
+                         failed_samples=sum(s.error
+                                            for s in env.trace.samples))
+    return out
+
+
+def measured_oracle_phase():
+    """The measured oracle's unit (CUDA events), first call and steady,
+    then the scheduler over it and over the analytic surface."""
+    oracle = TorchMeasuredOracle()
+    first = oracle.unit()
+    units = sorted(oracle.unit() for _ in range(UNIT_CALLS))
+    steady = units[UNIT_CALLS // 2]
+    check(0.0 < first and 0.0 < units[0], "the measured units are positive")
+    print(f"measured oracle ({oracle.unit_dim}^2 fp32 matmul + sum, CUDA "
+          f"events): first call in this phase {first * 1e6:.3f} us, steady "
+          f"median of {UNIT_CALLS} {steady * 1e6:.3f} us (min "
+          f"{units[0] * 1e6:.3f}, max {units[-1] * 1e6:.3f})")
+    result = dict(unit_first_us=first * 1e6, unit_steady_us=steady * 1e6,
+                  unit_min_us=units[0] * 1e6, unit_max_us=units[-1] * 1e6)
+    result["measured"] = schedule_paper_workflows(
+        lambda: Environment(TorchMeasuredOracle()))
+    result["analytic"] = schedule_paper_workflows(
+        lambda: SimulatedPlatform().environment())
+    for kind in ("measured", "analytic"):
+        for name, r in result[kind].items():
+            print(f"  AARC over the {kind} oracle, {name} (SLO "
+                  f"{r['slo_s']:.0f} s): {r['n_samples']} samples "
+                  f"({r['failed_samples']} failed), cost {r['cost']:.4f}, e2e "
+                  f"{r['e2e_s']:.4f} s, search wall {r['search_wall_s']:.3f} s")
+    for name, want in ANALYTIC_SCHEDULES.items():
+        r = result["analytic"][name]
+        got = (r["cost"], r["e2e_s"], r["n_samples"])
+        check(got == want, f"{name}: the analytic schedule {got} equals the "
+                           f"CPU's {want} bit for bit")
+    return result
+
+
+def layered_dag(n: int, n_layers: int, p_edge: float, seed: int):
+    """A seeded layered DAG: consecutive-layer edges with probability
+    ``p_edge``, every node with a predecessor in the layer above and a
+    successor in the layer below (the reference generator's rule)."""
+    rng = np.random.default_rng(seed)
+    wf = Workflow("layered")
+    cuts = np.sort(rng.choice(np.arange(1, n), size=n_layers - 1,
+                              replace=False))
+    bounds = [0, *cuts.tolist(), n]
+    layers = [[f"f{i:04d}" for i in range(a, b)]
+              for a, b in zip(bounds, bounds[1:])]
+    for name in (x for layer in layers for x in layer):
+        wf.add_function(name)
+    for upper, lower in zip(layers, layers[1:]):
+        mask = rng.random((len(upper), len(lower))) < p_edge
+        for i, u in enumerate(upper):
+            for j, v in enumerate(lower):
+                if mask[i, j]:
+                    wf.add_edge(u, v)
+        for i, u in enumerate(upper):
+            if not mask[i].any():
+                wf.add_edge(u, lower[int(rng.integers(len(lower)))])
+        for v in lower:
+            if not wf.predecessors(v):
+                wf.add_edge(upper[int(rng.integers(len(upper)))], v)
+    return wf
+
+
+def sweep_phase():
+    """The fleet engine's fast-plane sweep at fleet size on the card: bit
+    for bit against the numpy sweep, both timed, its launches counted."""
+    wf = layered_dag(SWEEP_V, SWEEP_LAYERS, SWEEP_P_EDGE, seed=0)
+    order = wf.topological_order()
+    col = {name: i for i, name in enumerate(wf.nodes)}
+    rng = np.random.default_rng(1)
+    rt = rng.uniform(0.5, 60.0, size=(SWEEP_C, SWEEP_V))
+    t_all = np.cumsum(rng.exponential(0.25, size=SWEEP_I))
+    fn = lambda: fast_plane_sweep(wf, order, col, t_all, rt)
+    got = fn()
+    want = numpy_plane_sweep(wf, order, col, t_all, rt)
+    check(got.dtype == np.float64 and got.shape == (SWEEP_C, SWEEP_I),
+          f"sweep shape {got.shape}")
+    check(np.array_equal(got, want), "the card's fp64 sweep equals the "
+                                     "numpy sweep bit for bit")
+    event_ms, wall_ms, numpy_ms = [], [], []
+    for _ in range(SWEEP_REPEATS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+        event_ms.append(start.elapsed_time(end))
+        t0 = time.perf_counter()
+        numpy_plane_sweep(wf, order, col, t_all, rt)
+        numpy_ms.append((time.perf_counter() - t0) * 1e3)
+    _, launches, _, device_ms = profile_call(
+        f"fast-plane sweep, {SWEEP_C} x {SWEEP_I} x {SWEEP_V} fp64", fn, {},
+        n=2)
+    med = lambda xs: sorted(xs)[len(xs) // 2]
+    edges = sum(len(wf.predecessors(v)) for v in wf.nodes)
+    result = dict(candidates=SWEEP_C, instances=SWEEP_I, nodes=SWEEP_V,
+                  edges=edges,
+                  finish_state_bytes=SWEEP_C * SWEEP_I * SWEEP_V * 8,
+                  bitwise_equal=True, cuda_event_ms=med(event_ms),
+                  wall_ms=med(wall_ms), numpy_ms=med(numpy_ms),
+                  launches_per_sweep=launches, device_busy_ms=device_ms)
+    print(f"fast-plane sweep {SWEEP_C} x {SWEEP_I} x {SWEEP_V} fp64 ({edges} "
+          f"edges, {result['finish_state_bytes'] / 1e9:.3f} GB of finish "
+          f"state): bit-equal to numpy; card {result['cuda_event_ms']:.3f} ms "
+          f"(CUDA events), {result['wall_ms']:.3f} ms (perf_counter), "
+          f"numpy {result['numpy_ms']:.3f} ms; {launches} launches per "
+          f"sweep")
+    return result
+
+
+def planner_phase():
+    """The planner on the H100 stage oracle at train_4k, SLO = PLAN_SLACK
+    x the all-resources step, for aarc, maff and bo."""
+    shape = SHAPES["train_4k"]
+    result = {}
+    for arch in PLAN_ARCHS:
+        cfg = get_config(arch)
+        base = plan(cfg, shape, 1e9, method="aarc", max_trail=0)
+        slo = PLAN_SLACK * base.step_time
+        rows = dict(base_step_s=base.step_time, slo_s=slo)
+        for method in ("aarc", "maff", "bo"):
+            t0 = time.perf_counter()
+            r = plan(cfg, shape, slo, method=method, max_trail=64)
+            wall = time.perf_counter() - t0
+            check(r.step_time <= slo + 1e-9, f"{arch} {method}: step "
+                                             f"{r.step_time} within {slo}")
+            remats = [p.remat for n, p in r.stages.items()
+                      if n.startswith("layers")]
+            rows[method] = dict(step_s=r.step_time, cost=r.cost,
+                                n_samples=r.n_samples,
+                                search_runtime_s=r.search_runtime,
+                                planner_wall_s=wall, layer_remats=remats)
+            print(f"  plan {arch} x train_4k, {method}: step "
+                  f"{r.step_time * 1e3:.3f} ms (SLO {slo * 1e3:.3f} ms), cost "
+                  f"{r.cost:.4f}, {r.n_samples} samples, modeled profiling "
+                  f"{r.search_runtime:.3f} s, layer remats {remats}")
+        check(rows["aarc"]["cost"] < rows["maff"]["cost"],
+              f"{arch}: AARC's plan costs less than MAFF's")
+        result[arch] = rows
+    return result
+
+
+def launcher_phase(slo: float):
+    """``repro_torch.launch.train --autotune-slo`` on the card: full-size
+    qwen3-0.6b, 2 steps of 8 x 512 with the remat level the planner
+    picks; its checkpoints go to build/ and are deleted after."""
+    ckpt = Path("build") / "autotune_launch_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = launch_train.main(LAUNCH_ARGS + [
+                "--autotune-slo", str(slo), "--ckpt-dir", str(ckpt)])
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    out = buf.getvalue()
+    for line in out.splitlines():
+        print(f"  | {line}")
+    picked = re.search(r"autotune: AARC plan -> remat=(\w+)", out)
+    losses = [float(x) for x in re.findall(r"step\s+\d+ loss (\S+)", out)]
+    check(rc == 0 and picked is not None, "the launcher planned and ran")
+    check(f"remat={picked.group(1)}, device=cuda" in out,
+          "the model trains with the picked remat level on the card")
+    check(len(losses) == 2 and all(np.isfinite(losses)),
+          f"two finite losses, got {losses}")
+    return dict(slo_s=slo, remat=picked.group(1), losses=losses,
+                wall_s=wall)
+
+
+def aarc_on_card():
+    """Phase 7: the measured oracle, the fast-plane sweep, the planner and
+    the launcher, in that order."""
+    t0 = time.perf_counter()
+    result = dict(oracle=measured_oracle_phase(), sweep=sweep_phase())
+    print("the stage-graph planner on the H100 oracle:")
+    result["plans"] = planner_phase()
+    slo = result["plans"]["qwen3-0.6b"]["slo_s"]
+    print(f"the training launcher, --autotune-slo {slo}:")
+    result["launcher"] = launcher_phase(slo)
+    result["phase_wall_s"] = time.perf_counter() - t0
+    print(f"AARC on the card took {result['phase_wall_s']:.1f} s")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1323,8 +1576,17 @@ def main() -> int:
     train["kernel_refuses_autograd"] = repair_on_card()
     print("flash attention under grad on the card: refused, no launch")
 
+    # AARC runs no kernel of the port: none may launch in this phase
+    flash_ops.launches = rms_ops.launches = 0
+    ssd_ops.intra_launches = ssd_ops.inter_launches = 0
+    aarc = aarc_on_card()
+    got = (flash_ops.launches, rms_ops.launches, ssd_ops.intra_launches,
+           ssd_ops.inter_launches)
+    check(got == (0, 0, 0, 0), f"no kernel launched by AARC, got {got}")
+
     kernels = [
-        dict(name="flash_attention", route="cuda mma.sync bf16 + scalar fp32",
+        dict(name="flash_attention", route="cuda",
+             design="mma.sync bf16 + scalar fp32",
              source="src/repro_torch/kernels/flash_attention/csrc/"
                     "flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:101",
@@ -1339,16 +1601,18 @@ def main() -> int:
                  **{f"{arch} serving": n
                     for arch, n in family_launches.items()}}),
         dict(name="fused_rmsnorm", route="triton",
+             design="a block of rows per program",
              source="src/repro_torch/kernels/rmsnorm/kernel.py",
              replaces="src/repro/kernels/rmsnorm/kernel.py:40",
              launches=rms_launches),
-        dict(name="ssd_intra", route="cuda mma.sync bf16 + scalar fp32",
+        dict(name="ssd_intra", route="cuda",
+             design="mma.sync bf16 + scalar fp32, chunk cumsum folded in",
              source="src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan/kernel.py:91",
              launches=hybrid_launches["ssd_intra"]),
-        dict(name="ssd_inter",
-             route="cuda mma.sync bf16 + scalar fp32, chunk recurrence "
-                   "folded in",
+        dict(name="ssd_inter", route="cuda",
+             design="mma.sync bf16 + scalar fp32, chunk recurrence "
+                    "folded in",
              source="src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan/kernel.py:117",
              launches=hybrid_launches["ssd_inter"]),
@@ -1377,6 +1641,7 @@ def main() -> int:
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": train}))
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"aarc": aarc}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

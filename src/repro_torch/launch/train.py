@@ -7,8 +7,11 @@
 Without ``--device`` it trains on the CUDA card. ``--reduced`` takes
 the laptop-sized same-family config. Fault tolerance (checkpoint and
 restart, watchdog) is always on; ``--microbatches`` and ``--remat`` are
-the AARC memory knobs. ``--autotune-slo`` (let the AARC planner pick
-``remat``) raises until the planner is ported.
+the AARC memory knobs, settable directly or via ``--autotune-slo``: the
+AARC planner (:func:`repro_torch.autotune.plan`, on the H100 stage
+oracle) configures the full config's ``train_4k`` stage graph against
+that step-time SLO and the layer trunk takes its most common remat
+level.
 """
 from __future__ import annotations
 
@@ -17,7 +20,9 @@ import dataclasses
 import math
 import time
 
-from repro_torch.configs import ARCH_IDS, get_config, reduced_config
+from repro_torch.autotune import plan
+from repro_torch.configs import (ARCH_IDS, SHAPES, get_config,
+                                 reduced_config)
 from repro_torch.distributed.fault_tolerance import (ResilientLoop,
                                                      StepWatchdog)
 from repro_torch.models.model import REMAT, Model
@@ -43,17 +48,26 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default="artifacts/ckpt")
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--autotune-slo", type=float, default=None,
-                    help="step-time SLO for the AARC planner (not ported)")
+                    help="step-time SLO: let the AARC planner pick the "
+                         "remat level before training")
     ap.add_argument("--log-every", type=int, default=10)
     args = ap.parse_args(argv)
 
-    if args.autotune_slo is not None:
-        raise NotImplementedError(
-            "--autotune-slo is not ported yet: the AARC planner comes with "
-            "the roofline/autotune slice; pass --remat instead")
     cfg = (reduced_config if args.reduced else get_config)(args.arch)
     if args.remat:
         cfg = dataclasses.replace(cfg, remat=args.remat)
+
+    if args.autotune_slo is not None:
+        r = plan(get_config(args.arch), SHAPES["train_4k"],
+                 args.autotune_slo, method="aarc")
+        # adopt the most common per-stage remat level for the layer trunk
+        remats = [p.remat for n, p in r.stages.items()
+                  if n.startswith("layers")]
+        picked = max(set(remats), key=remats.count) if remats else "dots"
+        cfg = dataclasses.replace(cfg, remat=picked)
+        print(f"autotune: AARC plan -> remat={picked} "
+              f"(modeled step {r.step_time * 1e3:.1f} ms, "
+              f"cost {r.cost:.2f}, {r.n_samples} samples)")
 
     model = Model(cfg, device=args.device)
     params = model.init(seed=0)

@@ -17,7 +17,8 @@ from repro.training import data as ref_data
 from repro.training import optimizer as ref_opt
 from repro.training.train_step import make_train_step as ref_make_train_step
 from repro_torch import bridge
-from repro_torch.configs import reduced_config
+from repro_torch.autotune import plan
+from repro_torch.configs import SHAPES, get_config, reduced_config
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.launch import train as launch_train
@@ -390,9 +391,20 @@ def test_launcher_trains_reduced_on_cpu(tmp_path, capsys):
     assert "remat=dots" in out and "done: 6 steps, 0 failures" in out
     assert sorted(p.name for p in ck.iterdir()) == ["step_00000003",
                                                     "step_00000006"]
-    with pytest.raises(NotImplementedError, match="autotune"):
-        launch_train.main(["--arch", "qwen3-0.6b", "--reduced", "--device",
-                           "cpu", "--autotune-slo", "1.0"])
+    # --autotune-slo: the port's planner picks the trunk's remat level by
+    # the reference's majority rule, and the model trains with it
+    r = plan(get_config("qwen3-0.6b"), SHAPES["train_4k"], 0.1,
+             method="aarc")
+    remats = [p.remat for n, p in r.stages.items() if n.startswith("layers")]
+    picked = max(set(remats), key=remats.count)
+    assert launch_train.main(
+        ["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu", "--steps",
+         "1", "--batch", "2", "--seq", "16", "--autotune-slo", "0.1",
+         "--ckpt-dir", str(tmp_path / "ck_autotune")]) == 0
+    out = capsys.readouterr().out
+    assert f"autotune: AARC plan -> remat={picked} " in out
+    assert f"remat={picked}, device=cpu" in out
+    assert "done: 1 steps, 0 failures" in out
 
 
 # --------------------------------------------------------------------------
