@@ -70,9 +70,23 @@ Phases, in order; any failure exits non-zero:
      and the training launcher with --autotune-slo (full-size
      qwen3-0.6b, 2 steps of 8 x 512, the planner's remat level, finite
      losses);
-  8. one JSON line of serving numbers (memory, int8), one of training
-     numbers, one of per-kernel numbers, one of AARC numbers and, last,
-     the device line.
+  8. the fleet engine on the card (no kernel of the port may launch):
+     ``FleetEngine.run_many`` over a seeded 12-node layered DAG from the
+     port's generator, 64 candidate config maps x 4 Poisson arrival
+     sets x 4,096 instances, on the card's plane and on the numpy plane,
+     all 256 reports equal field by field, each plane's wall time, the
+     sweep's share (CUDA events around ``fast_plane_sweep`` inside the
+     run), and one warm run under torch.profiler (launches, idle share);
+     ``run_fleet`` of 100 Chatbot instances on a 40 vCPU / 40,960 MB
+     cluster with cold starts, over the analytic surface (equal to the
+     CPU's numbers) and over the measured oracle (every invocation batch
+     timed on the card); the stochastic backend's paired plane (one
+     config in two candidate slots scores identically) and the faulty
+     fleets of ``examples/fleet_sim.py`` repeating from one seed, with
+     the CPU's failure, retry and timeout counts;
+  9. one JSON line of serving numbers (memory, int8), one of training
+     numbers, one of per-kernel numbers, one of AARC numbers, one of
+     fleet numbers and, last, the device line.
 """
 from __future__ import annotations
 
@@ -95,8 +109,15 @@ import torch.nn.functional as F
 
 from repro_torch.autotune import plan
 from repro_torch.configs import SHAPES, get_config, reduced_config
-from repro_torch.core import Environment, GraphCentricScheduler, Workflow
-from repro_torch.core.engine import fast_plane_sweep, numpy_plane_sweep
+from repro_torch.core import (Environment, GraphCentricScheduler,
+                              ResourceConfig)
+from repro_torch.core import engine as fleet_engine
+from repro_torch.core.engine import (ClusterModel, ColdStartModel,
+                                     FleetEngine, PoissonArrivals,
+                                     fast_plane_sweep, numpy_plane_sweep,
+                                     run_fleet)
+from repro_torch.core.faults import (FaultModel, ResilienceModel,
+                                     ResiliencePolicy)
 from repro_torch.distributed import InjectedFault, ResilientLoop
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -116,7 +137,8 @@ from repro_torch.models.mamba2 import chunk_recurrence
 from repro_torch.models.model import Model
 from repro_torch.models.transformer import layer_slice, tree_leaves, tree_map
 from repro_torch.serverless import (WORKLOADS, SimulatedPlatform,
-                                    TorchMeasuredOracle, workload_slo)
+                                    StochasticBackend, TorchMeasuredOracle,
+                                    layered_workflow, workload_slo)
 from repro_torch.serving import RequestQueue, ServeEngine
 from repro_torch.training import (AdamWConfig, SyntheticDataset, adamw_init,
                                   make_train_step)
@@ -193,8 +215,9 @@ ANALYTIC_SCHEDULES = {
     "video_analysis": (4798.680828070175, 364.4813596491228, 54)}
 #: the measured oracle's steady unit: the median of this many calls
 UNIT_CALLS = 50
-#: the fast-plane sweep at fleet size: candidates x instances over a seeded
-#: layered DAG (nodes, layers, edge probability), fp64, timed over repeats
+#: the fast-plane sweep at fleet size: candidates x instances over the
+#: generator's seeded layered DAG (nodes, layers, edge probability), fp64,
+#: timed over repeats
 SWEEP_C, SWEEP_I, SWEEP_V, SWEEP_LAYERS, SWEEP_P_EDGE = 64, 16_384, 12, 4, 0.3
 SWEEP_REPEATS = 5
 #: the planner's models at train_4k, the SLO over the all-resources step
@@ -203,6 +226,25 @@ PLAN_ARCHS = ("qwen3-0.6b", "llama-3.2-vision-90b")
 PLAN_SLACK = 1.5
 LAUNCH_ARGS = ["--arch", "qwen3-0.6b", "--steps", "2", "--batch", "8",
                "--seq", "512", "--log-every", "1"]
+#: the fleet engine at fleet size: candidates x arrival sets x instances
+#: per set over the sweep's layered DAG, Poisson arrivals at this rate
+#: (instances/s); the paired stochastic plane's sets
+FLEET_C, FLEET_S, FLEET_I, FLEET_RATE = 64, 4, 4096, 0.25
+NOISY_S, NOISY_I, NOISE_SIGMA = 2, 1024, 0.025
+#: run_fleet over Chatbot, as examples/fleet_sim.py runs it, with AARC's
+#: analytic configuration; the analytic fleet's (p50, p99, SLO attainment,
+#: queue delay, cost) as the CPU computes them
+CHATBOT_FLEET = dict(rate=0.2, n=100, seed=7)
+CHATBOT_CLUSTER = ClusterModel(total_cpu=40.0, total_mem_mb=40960.0)
+CHATBOT_COLD = ColdStartModel(delay_s=0.5, keep_alive_s=300.0)
+CHATBOT_ANALYTIC = (69.63333333333333, 76.05208458404086, 1.0,
+                    98.88956164083862, 12759.039999999999)
+#: examples/fleet_sim.py's fault schedule and its (failed instances,
+#: retries, timeouts) per recovery policy, as the CPU computes them
+FLEET_FAULTS = FaultModel(default_transient=0.1, straggler_prob=0.1,
+                          straggler_factor=6.0, seed=5)
+FAULTY_COUNTS = {"no-recovery": (56, 0, 0), "retries": (1, 86, 0),
+                 "+timeouts": (6, 166, 88)}
 
 
 def check(ok: bool, what: str) -> None:
@@ -1228,38 +1270,16 @@ def measured_oracle_phase():
     return result
 
 
-def layered_dag(n: int, n_layers: int, p_edge: float, seed: int):
-    """A seeded layered DAG: consecutive-layer edges with probability
-    ``p_edge``, every node with a predecessor in the layer above and a
-    successor in the layer below (the reference generator's rule)."""
-    rng = np.random.default_rng(seed)
-    wf = Workflow("layered")
-    cuts = np.sort(rng.choice(np.arange(1, n), size=n_layers - 1,
-                              replace=False))
-    bounds = [0, *cuts.tolist(), n]
-    layers = [[f"f{i:04d}" for i in range(a, b)]
-              for a, b in zip(bounds, bounds[1:])]
-    for name in (x for layer in layers for x in layer):
-        wf.add_function(name)
-    for upper, lower in zip(layers, layers[1:]):
-        mask = rng.random((len(upper), len(lower))) < p_edge
-        for i, u in enumerate(upper):
-            for j, v in enumerate(lower):
-                if mask[i, j]:
-                    wf.add_edge(u, v)
-        for i, u in enumerate(upper):
-            if not mask[i].any():
-                wf.add_edge(u, lower[int(rng.integers(len(lower)))])
-        for v in lower:
-            if not wf.predecessors(v):
-                wf.add_edge(upper[int(rng.integers(len(upper)))], v)
-    return wf
+def sweep_template():
+    """The generator's seeded layered DAG that phases 7 and 8 replay."""
+    return layered_workflow(SWEEP_V, n_layers=SWEEP_LAYERS,
+                            p_edge=SWEEP_P_EDGE, seed=0)
 
 
 def sweep_phase():
     """The fleet engine's fast-plane sweep at fleet size on the card: bit
     for bit against the numpy sweep, both timed, its launches counted."""
-    wf = layered_dag(SWEEP_V, SWEEP_LAYERS, SWEEP_P_EDGE, seed=0)
+    wf = sweep_template()
     order = wf.topological_order()
     col = {name: i for i, name in enumerate(wf.nodes)}
     rng = np.random.default_rng(1)
@@ -1379,6 +1399,248 @@ def aarc_on_card():
     result["launcher"] = launcher_phase(slo)
     result["phase_wall_s"] = time.perf_counter() - t0
     print(f"AARC on the card took {result['phase_wall_s']:.1f} s")
+    return result
+
+
+# --------------------------------------------------------------------------
+# phase 8: the fleet engine on the card
+# --------------------------------------------------------------------------
+
+REPORT_ARRAYS = ("arrivals", "finishes", "latencies", "queue_delays",
+                 "cold_delays", "costs", "failed_mask")
+REPORT_VALUES = ("makespan", "cpu_utilization", "mem_utilization", "p50",
+                 "p99", "total_cost", "total_queue_delay", "tenants",
+                 "queue_delay_by_function", "busy_by_function",
+                 "spinups_by_function", "provision_by_function",
+                 "replicas_by_function", "retries_by_function",
+                 "timeouts_by_function", "hedges_by_function",
+                 "failures_by_function")
+
+
+def reports_equal(a, b) -> bool:
+    """Two fleet reports field by field: arrays with ``np.array_equal``,
+    scalars, lists and dicts with ``==``, and ``saturation()``."""
+    return (all(np.array_equal(getattr(a, k), getattr(b, k))
+                for k in REPORT_ARRAYS)
+            and all(getattr(a, k) == getattr(b, k) for k in REPORT_VALUES)
+            and a.saturation() == b.saturation())
+
+
+@contextlib.contextmanager
+def timed_sweeps(out: list):
+    """Wrap the engine's ``fast_plane_sweep`` so that each sweep inside a
+    run appends (CUDA-event ms, perf_counter ms) to ``out``."""
+    real = fleet_engine.fast_plane_sweep
+
+    def sweep(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        got = real(*args, **kw)
+        end.record()
+        end.synchronize()
+        out.append((start.elapsed_time(end),
+                    (time.perf_counter() - t0) * 1e3))
+        return got
+
+    fleet_engine.fast_plane_sweep = sweep
+    try:
+        yield
+    finally:
+        fleet_engine.fast_plane_sweep = real
+
+
+def busy_ledger_ms(reports) -> float:
+    """Host milliseconds of the fast plane's per-cell busy ledger alone:
+    the loop ``FleetEngine._run_many_vectorized`` runs, one Python float
+    add per (arrival set, candidate, node, instance), on values of the
+    reports' size."""
+    t0 = time.perf_counter()
+    for rep in reports:
+        m = len(rep)
+        for val in rep.busy_by_function.values():
+            val = val / m
+            acc = 0.0
+            for _ in range(m):
+                acc += val
+    return (time.perf_counter() - t0) * 1e3
+
+
+def fleet_replay():
+    """``run_many`` at fleet size on the card's plane and the numpy plane:
+    every report equal, wall times, the sweep's share, one profiled run."""
+    template = sweep_template()
+    rng = np.random.default_rng(2)
+    cands = [{n.name: ResourceConfig(cpu=float(rng.uniform(1.0, 8.0)),
+                                     mem=float(rng.uniform(1024.0, 8192.0)))
+              for n in template} for _ in range(FLEET_C)]
+    arrivals = [PoissonArrivals(FLEET_RATE, FLEET_I, seed=s)
+                for s in range(FLEET_S)]
+    plat = SimulatedPlatform()
+    card = FleetEngine(plat.backend, pricing=plat.pricing)
+    host = FleetEngine(plat.backend, pricing=plat.pricing,
+                       plane_backend="numpy")
+    check(card.batch_eligibility(template, cands)["plane"] == "fast",
+          "the fleet replay routes to the fast plane")
+    run = lambda eng: eng.run_many(template, cands, arrivals)
+    sweeps, walls = [], {}
+    with timed_sweeps(sweeps):
+        for plane, eng in (("card first", card), ("card", card),
+                           ("numpy", host)):
+            t0 = time.perf_counter()
+            got = run(eng)
+            walls[plane] = (time.perf_counter() - t0) * 1e3
+            if plane == "card":
+                card_reports = got
+    numpy_reports = got
+    check(len(sweeps) == 2, f"one sweep per card run, got {len(sweeps)}")
+    check(len(card_reports) == FLEET_C * FLEET_S == len(numpy_reports),
+          f"{len(card_reports)} reports")
+    same = sum(reports_equal(a, b)
+               for a, b in zip(card_reports, numpy_reports))
+    check(same == FLEET_C * FLEET_S, f"the card's plane equals the numpy "
+                                     f"plane in {same} of "
+                                     f"{FLEET_C * FLEET_S} reports")
+    check(all(np.isfinite(r.latencies).all() and len(r) == FLEET_I
+              for r in card_reports), "every instance finished")
+    sweep_ms, sweep_wall_ms = sweeps[1]
+    ledger_ms = busy_ledger_ms(card_reports)
+    _, launches, prof_wall_ms, device_ms = profile_call(
+        f"run_many {FLEET_C} x {FLEET_S} x {FLEET_I} on the card's plane",
+        lambda: run(card), {}, n=1)
+    check(device_ms is not None, "the profiler saw the sweep's kernels")
+    result = dict(candidates=FLEET_C, arrival_sets=FLEET_S,
+                  instances=FLEET_I, nodes=SWEEP_V,
+                  edges=sum(len(template.predecessors(v))
+                            for v in template.nodes),
+                  reports_equal=same, card_first_ms=walls["card first"],
+                  card_ms=walls["card"], numpy_ms=walls["numpy"],
+                  sweep_cuda_event_ms=sweep_ms,
+                  sweep_wall_ms=sweep_wall_ms,
+                  sweep_share=sweep_wall_ms / walls["card"],
+                  busy_ledger_ms=ledger_ms,
+                  profiled_wall_ms=prof_wall_ms, device_busy_ms=device_ms,
+                  idle_share=1 - device_ms / prof_wall_ms,
+                  launches=launches)
+    print(f"run_many {FLEET_C} x {FLEET_S} x {FLEET_I} over a "
+          f"{SWEEP_V}-node layered DAG ({result['edges']} edges): "
+          f"{same} reports equal to the numpy plane's; card plane "
+          f"{walls['card']:.1f} ms (first {walls['card first']:.1f}), numpy "
+          f"plane {walls['numpy']:.1f} ms; sweep {sweep_ms:.3f} ms by CUDA "
+          f"events, {sweep_wall_ms:.3f} ms by perf_counter "
+          f"({result['sweep_share']:.4f} of the run); the busy ledger's "
+          f"loop alone {ledger_ms:.1f} ms; profiled run: "
+          f"{launches} launches, idle share {result['idle_share']:.4f}")
+    return result
+
+
+def fleet_numbers(rep, slo):
+    return dict(p50_s=rep.p50, p99_s=rep.p99,
+                slo_attainment=rep.slo_attainment(slo),
+                queue_delay_s=rep.total_queue_delay, cost=rep.total_cost,
+                cpu_utilization=rep.cpu_utilization,
+                failed=int(rep.failed_mask.sum()))
+
+
+def chatbot_fleets():
+    """``run_fleet`` of 100 Chatbot instances with AARC's configuration,
+    over the analytic surface and over the measured oracle."""
+    slo = workload_slo("chatbot")
+    found = GraphCentricScheduler(
+        SimulatedPlatform().environment()).schedule(WORKLOADS["chatbot"](),
+                                                    slo)
+    arrivals = PoissonArrivals(**CHATBOT_FLEET)
+    result = {}
+    for name, env in (("analytic", SimulatedPlatform().environment()),
+                      ("measured", Environment(TorchMeasuredOracle()))):
+        wf = WORKLOADS["chatbot"]()
+        wf.apply_configs(found.configs)
+        t0 = time.perf_counter()
+        rep = run_fleet(env, wf, arrivals, cluster=CHATBOT_CLUSTER,
+                        cold_start=CHATBOT_COLD)
+        numbers = fleet_numbers(rep, slo)
+        numbers["wall_ms"] = (time.perf_counter() - t0) * 1e3
+        check(len(rep) == CHATBOT_FLEET["n"]
+              and np.isfinite(rep.latencies).all()
+              and numbers["failed"] == 0, f"{name}: every instance finished")
+        result[name] = numbers
+        print(f"  run_fleet chatbot x {len(rep)} over the {name} surface: "
+              f"p50 {rep.p50:.4f} s, p99 {rep.p99:.4f} s, SLO attainment "
+              f"{numbers['slo_attainment']:.3f}, queue "
+              f"{rep.total_queue_delay:.3f} s, cost {rep.total_cost:.4f}, "
+              f"wall {numbers['wall_ms']:.1f} ms")
+    got = tuple(result["analytic"][k] for k in (
+        "p50_s", "p99_s", "slo_attainment", "queue_delay_s", "cost"))
+    check(got == CHATBOT_ANALYTIC, f"the analytic fleet {got} equals the "
+                                   f"CPU's {CHATBOT_ANALYTIC}")
+    return result, found.configs
+
+
+def stochastic_and_faults(configs):
+    """The paired stochastic plane, and the faulty fleets repeating from
+    one seed with the CPU's counts."""
+    template = sweep_template()
+    cfg = {n.name: ResourceConfig(cpu=4.0, mem=4096.0) for n in template}
+    arrivals = [PoissonArrivals(FLEET_RATE, NOISY_I, seed=s)
+                for s in range(NOISY_S)]
+    plat = SimulatedPlatform()
+    noisy = FleetEngine(StochasticBackend(noise_sigma=NOISE_SIGMA, seed=0),
+                        pricing=plat.pricing)
+    reps = noisy.run_many(template, [cfg, cfg], arrivals)
+    check(all(reports_equal(reps[i], reps[NOISY_S + i])
+              for i in range(NOISY_S)),
+          "one config in two candidate slots scores identically")
+    exact = FleetEngine(plat.backend, pricing=plat.pricing).run_many(
+        template, [cfg], arrivals)
+    check(not np.array_equal(reps[0].finishes, exact[0].finishes),
+          "the noise is applied")
+    result = dict(paired_slots_equal=True,
+                  noisy_p99_s=reps[0].p99, exact_p99_s=exact[0].p99)
+    slo = workload_slo("chatbot")
+    tuned = WORKLOADS["chatbot"]()
+    tuned.apply_configs(configs)
+    runtimes, _ = plat.backend.invoke_batch(list(tuned.nodes.values()))
+    policies = {
+        "no-recovery": None,
+        "retries": ResilienceModel(default=ResiliencePolicy(
+            max_retries=2, backoff_s=0.1)),
+        "+timeouts": ResilienceModel(policies={
+            name: ResiliencePolicy(max_retries=2, backoff_s=0.1,
+                                   timeout_s=3.0 * max(float(rt), 1.0))
+            for name, rt in zip(tuned.nodes, runtimes)})}
+    for name, policy in policies.items():
+        reps = [run_fleet(SimulatedPlatform().environment(), tuned.copy(),
+                          PoissonArrivals(**CHATBOT_FLEET),
+                          cluster=CHATBOT_CLUSTER, cold_start=CHATBOT_COLD,
+                          faults=FLEET_FAULTS, resilience=policy)
+                for _ in range(2)]
+        counts = (int(reps[0].failed_mask.sum()), reps[0].total_retries,
+                  reps[0].total_timeouts)
+        check(reports_equal(*reps), f"{name}: the faulty fleet repeats")
+        check(counts == FAULTY_COUNTS[name], f"{name}: counts {counts} equal "
+                                             f"the CPU's "
+                                             f"{FAULTY_COUNTS[name]}")
+        result[name] = dict(goodput=reps[0].goodput(slo), failed=counts[0],
+                            retries=counts[1], timeouts=counts[2],
+                            cost=reps[0].total_cost)
+        print(f"  faulty chatbot fleet, {name}: goodput "
+              f"{result[name]['goodput']:.3f}, failed {counts[0]}, retries "
+              f"{counts[1]}, timeouts {counts[2]}, twice the same")
+    return result
+
+
+def fleet_on_card():
+    """Phase 8: the fleet replay, the Chatbot fleets, the stochastic
+    plane and the faulty fleets, in that order."""
+    t0 = time.perf_counter()
+    result = dict(replay=fleet_replay())
+    print("run_fleet over the analytic surface and the measured oracle:")
+    result["chatbot"], configs = chatbot_fleets()
+    print("the stochastic plane and the faulty fleets:")
+    result["host_planes"] = stochastic_and_faults(configs)
+    result["phase_wall_s"] = time.perf_counter() - t0
+    print(f"the fleet engine on the card took {result['phase_wall_s']:.1f} s")
     return result
 
 
@@ -1584,6 +1846,13 @@ def main() -> int:
            ssd_ops.inter_launches)
     check(got == (0, 0, 0, 0), f"no kernel launched by AARC, got {got}")
 
+    # nor does the fleet engine
+    fleet = fleet_on_card()
+    got = (flash_ops.launches, rms_ops.launches, ssd_ops.intra_launches,
+           ssd_ops.inter_launches)
+    check(got == (0, 0, 0, 0), f"no kernel launched by the fleet engine, "
+                               f"got {got}")
+
     kernels = [
         dict(name="flash_attention", route="cuda",
              design="mma.sync bf16 + scalar fp32",
@@ -1642,6 +1911,7 @@ def main() -> int:
     print(json.dumps({"training": train}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"aarc": aarc}))
+    print(json.dumps({"fleet": fleet}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

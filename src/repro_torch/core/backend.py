@@ -18,12 +18,12 @@ and the H100 stage-roofline model — implements one interface,
                                   flagged instead of raising.
 
 :class:`Environment` accepts any backend (or a bare oracle callable,
-which is wrapped in :class:`CallableBackend`), so the AARC scheduler
-and the BO/MAFF baselines are backend-agnostic.
+which is wrapped in :class:`CallableBackend`), so the AARC scheduler,
+the BO/MAFF baselines and the fleet engine are backend-agnostic.
 
 The port's copy of ``src/repro/core/backend.py`` (lines 36-180). Left
-out: ``BaseBackend.batch_safe`` and ``grid_fusion_key``, which only the
-reference's fleet engine and fused grid driver read; neither is ported.
+out: ``grid_fusion_key``, which only the reference's lockstep grid
+runner reads; that runner is not ported.
 """
 from __future__ import annotations
 
@@ -68,12 +68,39 @@ class BaseBackend:
 
     ``deterministic`` declares that invocations are pure functions of
     the node's config (no RNG/measurement state, so call order and
-    batching never change results). False by default — opaque
-    callables must not be assumed pure.
+    batching never change results). ``batch_safe`` is the weaker gate
+    the fleet engine's candidate-vectorized replay plane
+    (``FleetEngine.run_many``) actually checks: deterministic backends
+    qualify outright, and a *stochastic* backend may opt in by
+    implementing the paired replay-stream contract
+    (``config_surface`` + ``replay_noise``; see
+    :class:`repro_torch.serverless.platform.StochasticBackend`) — its
+    noise then keys on the (instance, function) coordinate instead of
+    call order, so batched replays are reproducible paired comparisons.
+    Everything else takes the exact serial fallback. False by default
+    — opaque callables must not be assumed pure.
+
+    Fault injection follows the same discipline, engine-side: a
+    ``FleetEngine(faults=...)`` draws ONE
+    :meth:`repro_torch.core.faults.FaultModel.fault_stream` tensor per
+    ``run_many`` plane (a single rng advance, mirroring
+    ``replay_noise``) with draws keyed by the ``(attempt, instance,
+    function)`` coordinate — never by call order — and shared across
+    every candidate of the plane. The backend never sees fault state:
+    the paired fault-stream contract is orthogonal to (and composes
+    with) the replay-noise contract, so a stochastic backend under
+    faults still replays as a paired experiment across candidates.
     """
 
     has_clamped: bool = False
     deterministic: bool = False
+
+    @property
+    def batch_safe(self) -> bool:
+        """May ``FleetEngine.run_many`` evaluate whole candidate planes
+        against this backend? Deterministic backends qualify; stateful
+        ones must override (and honor the replay-stream contract)."""
+        return self.deterministic
 
     def invoke(self, node: Node) -> float:  # pragma: no cover - abstract
         raise NotImplementedError

@@ -3,23 +3,36 @@
 Every configuration search (AARC, BO, MAFF) measures candidate configs
 by *executing the workflow* through an :class:`Environment`. The
 environment wraps a :class:`repro_torch.core.backend.RuntimeBackend`
-(the analytic serverless surface, the measured oracle on the card, the
-H100 stage roofline) plus the pricing model; the :class:`SearchTrace`
-records one row per sample.
+(analytic / stochastic serverless surface, the measured oracle on the
+card, the H100 stage roofline) plus the pricing model; the
+:class:`SearchTrace` records one row per sample.
 
-The port's copy of ``src/repro/core/env.py`` (lines 48-432), with one
-change. The reference's :meth:`Environment.execute` runs every sample
-through its discrete-event ``FleetEngine`` as the degenerate case (a
-fleet of one on an infinite cluster with zero cold start), and the
-engine takes its degenerate-case path for it
-(``src/repro/core/engine.py:1147`` into ``_run_degenerate``,
-``:2105-2135``). The port keeps a private copy of that path,
-:meth:`Environment._run_degenerate`, in place of the 2,480-line engine:
-one ``invoke_batch`` over the nodes in insertion order, runtimes and
-failure flags written onto the nodes, cost summed in node order over
-the finite runtimes, and the longest path. Left out: ``engine``,
-``oracle``, ``execute_batch``, ``execute_prepared`` and
-``execute_function_batch``, which no caller of the port uses.
+:meth:`Environment.execute` runs every sample through the
+discrete-event :class:`repro_torch.core.engine.FleetEngine` as the
+degenerate case — a fleet of one instance on an infinite cluster with
+zero cold start — so the search path and the multi-tenant fleet path
+share one execution semantics (and the degenerate case reproduces
+``Workflow.end_to_end_latency`` bit-for-bit). The engine is constructed
+once per environment and reused across samples; it never sweeps, so it
+never needs a card.
+
+Campaign-scale search adds three *batched* evaluation paths, all
+routing through ``RuntimeBackend.invoke_batch`` (one numpy call per
+round instead of per-sample dispatch):
+
+  * :meth:`execute_batch`           — N whole workflows in one call,
+  * :meth:`execute_candidates`      — C candidate config maps for ONE
+    workflow topology, vectorized over candidates when the backend
+    supports ``invoke_config_batch`` (the analytic surface does),
+  * :meth:`probe_function_batch` / :meth:`apply_function_trial` — the
+    split measure/commit pair Algorithm 2 uses to drain a whole round
+    of same-priority ops as one probe while preserving revert-per-op
+    semantics (see :mod:`repro_torch.core.priority`);
+    :meth:`execute_function_batch` composes the two for callers that
+    accept every trial.
+
+The port's copy of ``src/repro/core/env.py``, numpy and plain Python as
+there, so that traces equal the reference's bit for bit.
 """
 from __future__ import annotations
 
@@ -118,8 +131,6 @@ class SearchTrace:
         return min(feas, key=lambda s: s.cost) if feas else None
 
 
-
-
 class Environment:
     """Wraps a runtime backend; executes workflows and logs samples.
 
@@ -139,36 +150,45 @@ class Environment:
         self.pricing = pricing
         self.capture_configs = capture_configs
         self.trace = SearchTrace(capture_configs=capture_configs)
+        self._engine = None          # cached degenerate-case FleetEngine
 
     def reset_trace(self) -> None:
         self.trace = SearchTrace(capture_configs=self.capture_configs)
 
-    def _run_degenerate(self, wf: Workflow) -> Tuple[float, float, bool]:
-        """One instance of ``wf`` arriving at 0 on an infinite cluster:
-        ``(e2e, cost, any failed)``, as the reference's fleet engine
-        computes them on its degenerate path."""
-        nodes = list(wf)
-        runtimes, failed = self.backend.invoke_batch(nodes)
-        cost = 0.0
-        for node, rt, bad in zip(nodes, runtimes, failed):
-            node.runtime = float(rt)
-            node.failed = bool(bad)
-            if not node.failed:
-                node.fail_reason = ""
-            if math.isfinite(node.runtime):
-                cost += self.pricing.function_cost(node.runtime, node.config)
-        return wf.end_to_end_latency(), cost, bool(failed.any())
+    @property
+    def engine(self):
+        """Per-environment degenerate-case engine (fleet of 1, infinite
+        cluster, zero cold start), built once and reused — the engine
+        keeps no state between runs, so thousand-sample searches stop
+        paying per-sample construction."""
+        if self._engine is None:
+            from repro_torch.core.engine import FleetEngine
+
+            self._engine = FleetEngine(self.backend, pricing=self.pricing)
+        return self._engine
+
+    def oracle(self, node: Node) -> float:
+        """Single-invocation oracle view of the backend (may raise
+        :class:`ExecutionError`), kept for direct callers/tests."""
+        return self.backend.invoke(node)
 
     # -- whole-workflow sampling ---------------------------------------
     def execute(self, wf: Workflow, slo: float, note: str = "") -> Sample:
         """Execute the whole workflow under current configs, log a sample.
 
+        Runs as a fleet-of-1 on an infinite cluster through the
+        discrete-event engine — the degenerate case of the fleet path.
         A function-level failure (e.g. OOM below the working set) makes
         the sample infeasible; the failed attempt is charged the
         thrash-until-killed wall time so search budgets stay honest.
         """
-        e2e, cost, failed = self._run_degenerate(wf)
-        if failed:
+        report = self.engine.run([wf], [0.0])
+        # array views (no InstanceResult materialization on the
+        # per-sample hot path); the degenerate path sums per-function
+        # costs in node order, so cost == workflow_cost(...) bit-for-bit
+        e2e = float(report.latencies[0])
+        cost = float(report.costs[0])
+        if report.failed_mask[0]:
             bad = "; ".join(n.fail_reason or n.name for n in wf if n.failed)
             if not self.backend.has_clamped:
                 # unbounded failure: charge the per-second rate only
@@ -177,6 +197,72 @@ class Environment:
                                          error=True, note=f"error:{bad}")
             return self.trace.record(e2e, cost, wf, feasible=False,
                                      error=True, note=f"error:{bad}")
+        return self.trace.record(e2e, cost, wf, feasible=e2e <= slo,
+                                 note=note)
+
+    def execute_batch(self, wfs: Sequence[Workflow],
+                      slo: Union[float, Sequence[float]],
+                      notes: Optional[Sequence[str]] = None) -> List[Sample]:
+        """Execute N whole workflows through ONE ``invoke_batch`` call.
+
+        Per-workflow results (runtimes written onto nodes, cost summed
+        in node order, failure handling) match what N separate
+        :meth:`execute` calls produce for a deterministic backend; only
+        the backend dispatch is fused, which is what makes portfolio
+        campaigns fast. ``slo`` may be a scalar or one value per
+        workflow.
+        """
+        if notes is None:
+            notes = [""] * len(wfs)
+        if isinstance(slo, (int, float)):
+            slos: Sequence[float] = [float(slo)] * len(wfs)
+        else:
+            slos = list(slo)
+        if not (len(wfs) == len(slos) == len(notes)):
+            raise ValueError("workflows / slos / notes length mismatch")
+        all_nodes = [n for wf in wfs for n in wf]
+        runtimes, failed = self.backend.invoke_batch(all_nodes)
+        samples: List[Sample] = []
+        i = 0
+        for wf, s, note in zip(wfs, slos, notes):
+            k = len(wf)
+            samples.append(self.execute_prepared(
+                wf, runtimes[i:i + k], failed[i:i + k], s, note=note))
+            i += k
+        return samples
+
+    def execute_prepared(self, wf: Workflow, runtimes: np.ndarray,
+                         failed: np.ndarray, slo: float,
+                         note: str = "") -> Sample:
+        """Commit pre-measured per-node runtimes as one whole-workflow
+        sample — the per-workflow half of :meth:`execute_batch`, exposed
+        so callers that already hold a (fused) ``invoke_batch`` result
+        can skip the backend dispatch. Runtimes are written onto the
+        nodes, cost is summed in node order, and failures follow the
+        same branch :meth:`execute` takes, so the recorded sample is
+        bit-identical to an :meth:`execute` call measuring the same
+        values."""
+        cost = 0.0
+        for node, rt, b in zip(wf, runtimes, failed):
+            node.runtime = float(rt)
+            node.failed = bool(b)
+            if not node.failed:
+                node.fail_reason = ""
+            if math.isfinite(node.runtime):
+                cost += self.pricing.function_cost(node.runtime,
+                                                   node.config)
+        e2e = wf.end_to_end_latency()
+        if failed.any():
+            msg = "; ".join(n.fail_reason or n.name for n in wf
+                            if n.failed)
+            if not self.backend.has_clamped:
+                cost = sum(self.pricing.rate(n.config) for n in wf)
+                return self.trace.record(
+                    math.inf, cost, wf, feasible=False, error=True,
+                    note=f"error:{msg}")
+            return self.trace.record(
+                e2e, cost, wf, feasible=False, error=True,
+                note=f"error:{msg}")
         return self.trace.record(e2e, cost, wf, feasible=e2e <= slo,
                                  note=note)
 
@@ -347,3 +433,19 @@ class Environment:
         feasible = (not error) and e2e <= slo
         return self.trace.record(e2e, cost, wf, feasible=feasible, error=error,
                                  trial_time=float(rt), note=note)
+
+    def execute_function_batch(self, wf: Workflow, nodes: Sequence[Node],
+                               slo: float,
+                               notes: Optional[Sequence[str]] = None
+                               ) -> List[Sample]:
+        """Probe N function trials in one backend call and commit them
+        all (no revert): sample ``i`` reflects trials ``0..i`` applied.
+        Callers needing accept/reject-per-trial use the
+        :meth:`probe_function_batch` / :meth:`apply_function_trial`
+        pair directly."""
+        if notes is None:
+            notes = [""] * len(nodes)
+        runtimes, failed = self.probe_function_batch(nodes)
+        return [self.apply_function_trial(wf, node, float(rt), bool(bad),
+                                          slo, note=note)
+                for node, rt, bad, note in zip(nodes, runtimes, failed, notes)]

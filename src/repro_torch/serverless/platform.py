@@ -1,33 +1,38 @@
 """Simulated FaaS platform: response surfaces as runtime backends, and
 a measured oracle timed on the card.
 
-* **analytic** (:class:`AnalyticBackend`) — deterministic
-  response-surface evaluation; used by every configuration search
-  (deterministic => reproducible search traces). ``invoke_batch``
-  evaluates a whole batch of pending invocations in ONE vectorized
-  numpy expression and matches the scalar :meth:`FunctionSpec.runtime`
-  bit-for-bit.
+Backend modes (all implement
+:class:`repro_torch.core.backend.RuntimeBackend`):
+
+* **analytic** (:class:`AnalyticBackend`, default) — deterministic
+  evaluation of each function's :class:`FunctionSpec` response surface.
+  ``invoke_batch`` vectorizes a whole batch of invocations into one
+  numpy expression — the fleet engine's hot path — and matches the
+  scalar :meth:`FunctionSpec.runtime` bit-for-bit.
+* **stochastic** (:class:`StochasticBackend`) — multiplies each
+  invocation by log-normal noise (default sigma 2.5 %), used by the
+  Table-II style "execute the final configuration 100 times"
+  validation runs.
 * **measured** (:class:`TorchMeasuredOracle`) — times a real (tiny)
   matmul on the device, scaled by the configured resources,
   demonstrating that the searchers are backend-agnostic (wrapped via
-  :func:`repro_torch.core.backend.as_backend`).
+  :class:`repro_torch.core.backend.CallableBackend`).
 
 The port's copy of ``src/repro/serverless/platform.py``:
-``AnalyticBackend`` (lines 34-240), ``SimulatedPlatform`` and
-``make_env`` (lines 323-361) without invocation noise, and
-:class:`TorchMeasuredOracle` as the counterpart of ``JaxMeasuredOracle``
-(lines 369-392). Left out: ``StochasticBackend`` (so ``noise_sigma``
-and ``seed``), ``make_scaled_env``, and the analytic backend's noise
-hooks and its fleet-replay and fused-grid contracts (``config_surface``,
-``replay_noise``, ``grid_fusion_key``, ``surface_*``,
-``apply_invocation_noise``), which only the reference's fleet engine
-and grid driver call, and the invocation counters and
-``SimulatedPlatform``'s oracle views, which no caller of the port reads.
+``AnalyticBackend`` with its replay-plane contract (``config_surface``,
+``replay_noise``; lines 34-177), ``StochasticBackend`` (lines 241-321),
+``SimulatedPlatform``, ``make_env`` and ``make_scaled_env`` (lines
+323-366), and :class:`TorchMeasuredOracle` as the counterpart of
+``JaxMeasuredOracle`` (lines 369-392). Left out: the fused-grid contract
+(``grid_fusion_key``, ``surface_*``, ``apply_invocation_noise``), which
+only the reference's lockstep grid runner calls, and the invocation
+counters and ``SimulatedPlatform``'s oracle views, which no caller of
+the port reads.
 """
 from __future__ import annotations
 
 import time
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -52,7 +57,8 @@ class AnalyticBackend(BaseBackend):
         self._spec_rows: Dict[int, tuple] = {}
 
     has_clamped = True
-    #: pure response surface — batching/order never change results
+    #: pure response surface — batching/order never change results, so
+    #: the fleet engine may evaluate whole candidate planes at once
     deterministic = True
     #: priority-search batch-size crossover (``priority_plan``): a
     #: scalar surface invoke costs ~2µs while ``invoke_batch`` pays a
@@ -69,12 +75,19 @@ class AnalyticBackend(BaseBackend):
     # -- scalar path (search trials, legacy oracle callers) -----------
     def invoke(self, node: Node) -> float:
         spec = self._spec(node)
-        return spec.runtime(node.config, input_scale=self.input_scale)
+        rt = spec.runtime(node.config, input_scale=self.input_scale)
+        return self._noise_one(rt)
 
     def invoke_clamped(self, node: Node) -> float:
         """Thrash-until-killed runtime for failing configs (see env.py)."""
         spec = self._spec(node)
         return spec.runtime_clamped(node.config, input_scale=self.input_scale)
+
+    def _noise_one(self, rt: float) -> float:
+        return rt
+
+    def _noise_batch(self, rt: np.ndarray, ok: np.ndarray) -> np.ndarray:
+        return rt
 
     def _spec_arrays(self, nodes: Sequence[Node]) -> Tuple[np.ndarray, ...]:
         """Gather the response-surface constants of ``nodes`` (shape (n,))."""
@@ -118,9 +131,10 @@ class AnalyticBackend(BaseBackend):
         amdahl = (1.0 - pfrac) + pfrac / np.maximum(cpu, 1e-6)
         work = cpu_work * s
         runtimes = io + work * amdahl * mem_factor
+        runtimes = self._noise_batch(runtimes, ~failed)
         return runtimes, failed
 
-    # -- vectorized path (one numpy evaluation per batch) --------------
+    # -- vectorized path (one engine step == one numpy evaluation) -----
     def invoke_batch(self, nodes: Sequence[Node]) -> Tuple[np.ndarray, np.ndarray]:
         cfgs = [node.config for node in nodes]
         cpu = np.array([c.cpu for c in cfgs])
@@ -141,33 +155,150 @@ class AnalyticBackend(BaseBackend):
         """C candidate configurations × n functions in ONE numpy call.
 
         ``cpu``/``mem`` have shape ``(C, n)`` aligned to ``nodes``; the
-        response-surface constants are gathered once and broadcast (see
+        response-surface constants are gathered once and broadcast, so
+        the per-node Python cost is amortized over all C candidates (see
         :meth:`repro_torch.core.env.Environment.execute_candidates`).
         """
         return self._surface(np.asarray(cpu, dtype=np.float64),
                              np.asarray(mem, dtype=np.float64),
                              self._spec_arrays(nodes))
 
+    # -- batched-replay plane contract (FleetEngine.run_many) ----------
+    def config_surface(self, nodes: Sequence[Node], cpu: np.ndarray,
+                       mem: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """Noise-*free* response surface for a candidate plane: the
+        deterministic part of :meth:`invoke_config_batch`, with no RNG
+        state advanced — safe for diagnostics
+        (:meth:`FleetEngine.batch_eligibility`) and for the replay
+        plane, which re-applies invocation noise from
+        :meth:`replay_noise` at the (instance, function) coordinate.
+        For the plain analytic backend this *is* ``invoke_config_batch``.
+        """
+        self._suppress_noise = True
+        try:
+            return self._surface(np.asarray(cpu, dtype=np.float64),
+                                 np.asarray(mem, dtype=np.float64),
+                                 self._spec_arrays(nodes))
+        finally:
+            self._suppress_noise = False
+
+    def replay_noise(self, n_instances: int,
+                     n_nodes: int) -> Optional[np.ndarray]:
+        """Per-(instance, function) noise factors for one batched
+        replay plane; ``None`` means the surface is exact (no noise)."""
+        return None
+
+
+class StochasticBackend(AnalyticBackend):
+    """Analytic surface x log-normal invocation noise (§IV validation).
+
+    Inherits the full vectorized surface, **including**
+    ``invoke_config_batch``: a C×N candidate plane draws its (C, N)
+    noise matrix in candidate-major order — the same order a loop of
+    scalar ``invoke`` calls (or C ``invoke_batch`` rows) consumes the
+    stream — so batched candidate evaluation is bit-identical to the
+    scalar path under a fixed seed.
+
+    The RNG is stateful, so the backend is *not* ``deterministic`` —
+    but it IS ``batch_safe``: it implements the fleet engine's paired
+    replay-stream contract. One :meth:`replay_noise` call per
+    ``FleetEngine.run_many`` plane draws an (instances, functions)
+    noise tensor from the backend's stream (ONE state advance per
+    plane, instance-major), and every invocation of instance *i*'s
+    function *v* — whichever candidate, whichever admission round —
+    pays factor ``noise[i, v]``. Noise keyed by coordinate instead of
+    call order makes batched replays reproducible and **paired**: all
+    candidates see identical draws, so a challenger-vs-incumbent
+    comparison is a paired experiment, and the same configuration in
+    two candidate slots scores identically.
+
+    Fault injection (``FleetEngine(faults=...)``) composes with this
+    contract without touching the backend: the engine draws its own
+    per-plane fault stream (one seeded rng advance, keyed by the
+    ``(attempt, instance, function)`` coordinate — see
+    :meth:`repro_torch.core.faults.FaultModel.fault_stream`)
+    *independent* of this backend's noise stream, so a stochastic fleet
+    under faults still replays as a paired experiment across candidates.
+    Caveat: under faults the serial looped-``run`` fallback re-draws
+    ``replay_noise`` per cell while a ``run_many`` plane draws once for
+    all cells — the same plane-level segmenting ``replay_noise`` itself
+    has — so stochastic serial-vs-batched identity holds per plane, not
+    across differently shaped planes.
+    """
+
+    deterministic = False
+    #: stateful, but replay-plane-eligible via the paired-stream
+    #: contract (config_surface + replay_noise)
+    batch_safe = True
+    #: opting into the scalar-round crossover changes which rng draw a
+    #: narrow round's trial sees (per-op ``_noise_one`` instead of one
+    #: batched probe draw) — statistically equivalent, and the per-op
+    #: draw is ~4µs against the probe's ~50µs fixed cost (the
+    #: reference's measured break-even ~k=16; 8 leaves margin for the
+    #: noise-draw slope)
+    scalar_round_max = 8
+
+    def __init__(self, *, noise_sigma: float = 0.025, seed: int = 0,
+                 input_scale: float = 1.0):
+        super().__init__(input_scale=input_scale)
+        self.noise_sigma = noise_sigma
+        self.rng = np.random.default_rng(seed)
+
+    def _noise_one(self, rt: float) -> float:
+        if self.noise_sigma <= 0.0:
+            return rt
+        return rt * float(np.exp(self.rng.normal(0.0, self.noise_sigma)))
+
+    def _noise_batch(self, rt: np.ndarray, ok: np.ndarray) -> np.ndarray:
+        if self.noise_sigma <= 0.0 or getattr(self, "_suppress_noise",
+                                              False):
+            return rt
+        noise = np.exp(self.rng.normal(0.0, self.noise_sigma, size=rt.shape))
+        # failing invocations are charged the deterministic thrash time
+        return np.where(ok, rt * noise, rt)
+
+    def replay_noise(self, n_instances: int,
+                     n_nodes: int) -> Optional[np.ndarray]:
+        """The paired replay-stream contract: one (instances, functions)
+        log-normal factor tensor per batched replay plane, drawn
+        instance-major from the backend's stream. Candidates share the
+        tensor — see the class docstring."""
+        if self.noise_sigma <= 0.0:
+            return None
+        return np.exp(self.rng.normal(0.0, self.noise_sigma,
+                                      size=(n_instances, n_nodes)))
+
 
 class SimulatedPlatform:
-    """Convenience wrapper bundling the analytic backend with pricing
-    (``SimulatedPlatform().environment()``, as in the reference)."""
+    """Convenience wrapper bundling a backend with pricing
+    (``SimulatedPlatform().environment()``, as in the reference): the
+    analytic surface, or the stochastic one when ``noise_sigma > 0``."""
 
-    def __init__(self, *, input_scale: float = 1.0,
-                 pricing: PricingModel = DEFAULT_PRICING):
+    def __init__(self, *, input_scale: float = 1.0, noise_sigma: float = 0.0,
+                 seed: int = 0, pricing: PricingModel = DEFAULT_PRICING):
         self.input_scale = input_scale
+        self.noise_sigma = noise_sigma
         self.pricing = pricing
-        self.backend = AnalyticBackend(input_scale=input_scale)
+        if noise_sigma > 0.0:
+            self.backend: AnalyticBackend = StochasticBackend(
+                noise_sigma=noise_sigma, seed=seed, input_scale=input_scale)
+        else:
+            self.backend = AnalyticBackend(input_scale=input_scale)
 
     def environment(self) -> Environment:
         return Environment(self.backend, pricing=self.pricing)
 
 
-def make_env(*, input_scale: float = 1.0,
-             pricing: PricingModel = DEFAULT_PRICING) -> Environment:
+def make_env(*, input_scale: float = 1.0, noise_sigma: float = 0.0,
+             seed: int = 0, pricing: PricingModel = DEFAULT_PRICING) -> Environment:
     """Convenience: a fresh Environment over a fresh simulated platform."""
-    return SimulatedPlatform(input_scale=input_scale,
-                             pricing=pricing).environment()
+    return SimulatedPlatform(input_scale=input_scale, noise_sigma=noise_sigma,
+                             seed=seed, pricing=pricing).environment()
+
+
+def make_scaled_env(scale: float) -> Environment:
+    """Factory signature used by the Input-Aware engine (§IV-D)."""
+    return make_env(input_scale=scale)
 
 
 class TorchMeasuredOracle:

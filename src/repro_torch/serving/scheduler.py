@@ -6,67 +6,23 @@ slots (EOS or max_tokens) are immediately refilled from the queue with
 a single-sequence prefill scattered into the slot — so the batch never
 drains, the standard continuous-batching property.
 
+The queue shares the fleet engine's arrival abstraction
+(:mod:`repro_torch.core.engine`, which the names below re-export):
 ``submit_process`` stamps requests with arrival times drawn from a
 ``PoissonArrivals`` / ``TraceArrivals`` process, and ``pop(now=...)``
-only releases requests that have arrived. The arrival processes are
-the port's own copy of the fleet engine's (``repro.core.engine``), so
-the same traffic models drive the fleet simulation and LLM serving.
+only releases requests that have arrived — the same traffic models
+drive both the serverless fleet simulation and LLM serving.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Deque, List, Optional, Sequence, Union
+from typing import Deque, List, Optional, Sequence
 
 import numpy as np
 
-
-# --------------------------------------------------------------------------
-# arrival processes
-# --------------------------------------------------------------------------
-
-class PoissonArrivals:
-    """``n`` arrivals at rate ``rate`` (instances/second), seeded."""
-
-    def __init__(self, rate: float, n: int, *, seed: int = 0,
-                 start: float = 0.0):
-        if rate <= 0.0:
-            raise ValueError("arrival rate must be positive")
-        self.rate = rate
-        self.n = n
-        self.seed = seed
-        self.start = start
-
-    def times(self) -> np.ndarray:
-        rng = np.random.default_rng(self.seed)
-        gaps = rng.exponential(1.0 / self.rate, size=self.n)
-        return self.start + np.cumsum(gaps)
-
-
-class TraceArrivals:
-    """Replay arrival timestamps from a trace (any float sequence).
-
-    Order is preserved — entry ``i`` is instance ``i``'s arrival, the
-    same pairing a raw float sequence gets. The queue sorts by arrival
-    itself."""
-
-    def __init__(self, times: Sequence[float]):
-        t = np.asarray(times, dtype=np.float64)
-        if t.ndim != 1:
-            raise ValueError("trace must be a 1-D sequence of timestamps")
-        self._times = t
-
-    def times(self) -> np.ndarray:
-        return self._times
-
-
-ArrivalLike = Union[PoissonArrivals, TraceArrivals, Sequence[float]]
-
-
-def arrival_times(arrivals: ArrivalLike) -> np.ndarray:
-    if hasattr(arrivals, "times"):
-        return np.asarray(arrivals.times(), dtype=np.float64)
-    return np.asarray(arrivals, dtype=np.float64)
+from repro_torch.core.engine import (ArrivalLike, PoissonArrivals,  # noqa: F401
+                                     TraceArrivals, arrival_times)
 
 
 # --------------------------------------------------------------------------

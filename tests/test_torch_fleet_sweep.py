@@ -5,7 +5,9 @@ of the reference's jitted ``lax.scan`` sweep behind
 ``FleetEngine(plane_backend="jax")``. Standing in for it (``_sweep_jax``
 monkeypatched), it must make the reference's fleet reports identical to
 the numpy plane's; and on random DAGs and runtimes it must equal the
-port's numpy sweep and the reference's numpy plane bit for bit.
+port's numpy sweep and the reference's numpy plane bit for bit. The
+port's own engine, whose fast plane runs the sweep, gives the same
+reports on its torch and numpy planes.
 """
 import numpy as np
 import pytest
@@ -19,13 +21,25 @@ from repro.serverless.generator import (chain_workflow, diamond_workflow,
                                         fan_workflow, layered_workflow)
 from repro.serverless.platform import SimulatedPlatform
 from repro_torch.core import dag as port_dag
+from repro_torch.core import engine as port_engine
 from repro_torch.core.engine import fast_plane_sweep, numpy_plane_sweep
+from repro_torch.core.resources import ResourceConfig as PortConfig
+from repro_torch.serverless import generator as port_generator
+from repro_torch.serverless.platform import \
+    SimulatedPlatform as PortSimulatedPlatform
 
 TOPOLOGIES = {
     "chain": lambda: chain_workflow(5, seed=11),
     "fan": lambda: fan_workflow(4, seed=12),
     "diamond": lambda: diamond_workflow(2, seed=13),
     "layered": lambda: layered_workflow(10, n_layers=3, seed=14),
+}
+PORT_TOPOLOGIES = {
+    "chain": lambda: port_generator.chain_workflow(5, seed=11),
+    "fan": lambda: port_generator.fan_workflow(4, seed=12),
+    "diamond": lambda: port_generator.diamond_workflow(2, seed=13),
+    "layered": lambda: port_generator.layered_workflow(10, n_layers=3,
+                                                       seed=14),
 }
 
 
@@ -168,3 +182,36 @@ def test_sweep_needs_a_card_by_default(monkeypatch):
     wf.add_function("a")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         fast_plane_sweep(wf, ["a"], {"a": 0}, np.zeros(2), np.ones((1, 1)))
+
+
+@pytest.mark.parametrize("kind", list(TOPOLOGIES))
+def test_port_engine_torch_plane_equals_its_numpy_plane(kind,
+                                                        monkeypatch):
+    """``FleetEngine(plane_backend="torch", device="cpu")`` of the port
+    against its ``plane_backend="numpy"``: one sweep on the torch plane,
+    none on the numpy plane, the same reports bit for bit."""
+    template = PORT_TOPOLOGIES[kind]()
+    rng = np.random.default_rng(16)
+    cands = [{n.name: PortConfig(cpu=float(rng.uniform(1.0, 8.0)),
+                                 mem=float(rng.uniform(1024.0, 8192.0)))
+              for n in template} for _ in range(3)]
+    seeds = arrival_sets(2)
+    sweeps = []
+    real = port_engine.fast_plane_sweep
+
+    def counted(*args, **kw):
+        sweeps.append(kw["device"])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(port_engine, "fast_plane_sweep", counted)
+    plat = PortSimulatedPlatform()
+    reports = {}
+    for plane in ("torch", "numpy"):
+        eng = port_engine.FleetEngine(plat.backend, pricing=plat.pricing,
+                                      plane_backend=plane, device="cpu")
+        reports[plane] = eng.run_many(template, cands, seeds)
+    assert sweeps == ["cpu"]
+    assert len(reports["torch"]) == 6
+    for got, want in zip(reports["torch"], reports["numpy"]):
+        assert_reports_identical(got, want)
+        assert got.busy_by_function == want.busy_by_function
