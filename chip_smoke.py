@@ -84,9 +84,24 @@ Phases, in order; any failure exits non-zero:
      config in two candidate slots scores identically) and the faulty
      fleets of ``examples/fleet_sim.py`` repeating from one seed, with
      the CPU's failure, retry and timeout counts;
-  9. one JSON line of serving numbers (memory, int8), one of training
+  9. distribution on the card, on a one-rank NCCL process group (a
+     store in this process, no network; no kernel of the port may
+     launch): full-width, full-depth qwen3-0.6b through
+     ``build_train_step``'s sharded step on a (data=1, model=1) mesh
+     with the FSDP rules, 5 steps from phase 6's state and batch, its
+     losses held to phase 6's first 5 and its parameters to 5 plain
+     steps at the reference's sharded-step tolerances (bitwise equality
+     printed), its step time (CUDA events), launches, idle share and peak
+     memory beside the plain step's; the int8 gradient sync over a
+     one-rank ``pod`` group on one step's gradients (0.6 B parameters),
+     equal bit for bit to quantize-dequantize and its error to what that
+     dropped, timed against its byte bound; and a sharded checkpoint of
+     the 2-layer state written to build/ and restored onto the mesh, bit
+     for bit, then deleted;
+ 10. one JSON line of serving numbers (memory, int8), one of training
      numbers, one of per-kernel numbers, one of AARC numbers, one of
-     fleet numbers and, last, the device line.
+     fleet numbers, one of distribution numbers and, last, the device
+     line.
 """
 from __future__ import annotations
 
@@ -105,10 +120,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import DTensor
 
 from repro_torch.autotune import plan
 from repro_torch.configs import SHAPES, get_config, reduced_config
+from repro_torch.configs.shapes import Shape
 from repro_torch.core import (Environment, GraphCentricScheduler,
                               ResourceConfig)
 from repro_torch.core import engine as fleet_engine
@@ -119,6 +138,11 @@ from repro_torch.core.engine import (ClusterModel, ColdStartModel,
 from repro_torch.core.faults import (FaultModel, ResilienceModel,
                                      ResiliencePolicy)
 from repro_torch.distributed import InjectedFault, ResilientLoop
+from repro_torch.distributed.collectives import (cross_pod_grad_sync,
+                                                 dequantize_int8,
+                                                 quantize_int8)
+from repro_torch.distributed.sharding import (FSDP_RULES, distribute_tree,
+                                              tree_shardings)
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
@@ -131,6 +155,7 @@ from repro_torch.kernels.ssd_scan.kernel import ssd_inter_cuda, ssd_intra_cuda
 from repro_torch.kernels.ssd_scan.ref import (ssd_inter_scan_ref,
                                               ssd_intra_ref, ssd_scan_ref)
 from repro_torch.launch import train as launch_train
+from repro_torch.launch.steps import build_train_step
 from repro_torch.models.attention import sdpa
 from repro_torch.models import moe
 from repro_torch.models.mamba2 import chunk_recurrence
@@ -141,7 +166,8 @@ from repro_torch.serverless import (WORKLOADS, SimulatedPlatform,
                                     layered_workflow, workload_slo)
 from repro_torch.serving import RequestQueue, ServeEngine
 from repro_torch.training import (AdamWConfig, SyntheticDataset, adamw_init,
-                                  make_train_step)
+                                  make_train_step, restore_checkpoint,
+                                  save_checkpoint, train_state_axes)
 
 #: H100 SXM data-sheet peaks (dense): bf16 tensor cores, fp32 outside them,
 #: and HBM3 bandwidth
@@ -245,6 +271,13 @@ FLEET_FAULTS = FaultModel(default_transient=0.1, straggler_prob=0.1,
                           straggler_factor=6.0, seed=5)
 FAULTY_COUNTS = {"no-recovery": (56, 0, 0), "retries": (1, 86, 0),
                  "+timeouts": (6, 166, 88)}
+#: distribution on the card: sharded steps from phase 6's state, the
+#: reference's sharded-step tolerances (tests/test_distributed.py), and
+#: the CUDA-event repeats of the int8 gradient sync
+DIST_STEPS = 5
+DIST_LOSS_RTOL = 1e-4
+DIST_PARAM_TOL = dict(atol=1e-4, rtol=1e-3)
+SYNC_REPS = 10
 
 
 def check(ok: bool, what: str) -> None:
@@ -1030,6 +1063,7 @@ def train_main_path():
         peak_share=flops / (step_ms * 1e-3) / PEAK_FLOPS[torch.bfloat16],
         peak_bytes=peak, resident_bytes=resident,
         loss_first=losses[0], loss_last=losses[-1], grad_norm=norms[-1],
+        losses=losses,
         profiled_wall_ms=wall_ms, device_busy_ms=device_ms,
         idle_share=1 - device_ms / wall_ms, launches_per_step=launches,
         top_kernels=[[r.key[:80], r.self_device_time_total / 1e3]
@@ -1644,6 +1678,191 @@ def fleet_on_card():
     return result
 
 
+# --------------------------------------------------------------------------
+# phase 9: distribution on the card
+# --------------------------------------------------------------------------
+
+def whole(t: torch.Tensor) -> torch.Tensor:
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def dist_train_step(mesh, model, state0, batch, train):
+    """build_train_step's sharded step of full-size qwen3-0.6b on the
+    one-rank mesh: DIST_STEPS steps from phase 6's state on phase 6's
+    batch against phase 6's losses and DIST_STEPS plain steps, then one
+    profiled step; each loop's step time is the mean of its steps after
+    the first (CUDA events)."""
+    bundle = build_train_step(model.cfg, Shape("train", TRAIN_SEQ,
+                                               TRAIN_BATCH, "train"),
+                              mesh, rules=FSDP_RULES, opt_cfg=TRAIN_OPT)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, dbatch = bundle.place(state0, batch)
+    check(isinstance(state["params"]["embed"]["tok"], DTensor) and
+          isinstance(dbatch["tokens"], DTensor), "the state and the batch "
+                                                 "are DTensors on the mesh")
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(DIST_STEPS + 1)]
+    metrics = []
+    events[0].record()
+    for i in range(DIST_STEPS):
+        state, m = bundle.step(state, dbatch)
+        metrics.append(m)
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    losses = [float(whole(m["loss"])) for m in metrics]
+    want = train["losses"][:DIST_STEPS]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+    check(rel <= DIST_LOSS_RTOL, f"the sharded losses {losses} within rel "
+                                 f"{DIST_LOSS_RTOL} of phase 6's {want}")
+    plain_state, plain_losses, _, plain_ms = train_steps(
+        make_train_step(model, TRAIN_OPT), state0, batch, DIST_STEPS)
+    param_err = 0.0
+    bit_equal = losses == plain_losses
+    for a, b in zip(tree_leaves(state["params"]),
+                    tree_leaves(plain_state["params"])):
+        a = whole(a)
+        param_err = max(param_err, max_err(a, b, what="sharded params "
+                                           "after 5 steps", **DIST_PARAM_TOL))
+        bit_equal = bit_equal and torch.equal(a, b)
+    del plain_state
+    step_ms = sum(ms[1:]) / len(ms[1:])
+    plain_step_ms = sum(plain_ms[1:]) / len(plain_ms[1:])
+    print(f"qwen3-0.6b sharded train step, FSDP rules on a (data=1, "
+          f"model=1) mesh, bf16, remat dots, {TRAIN_BATCH} x {TRAIN_SEQ}: "
+          f"step {step_ms:.3f} ms (CUDA events, mean of steps 2-"
+          f"{DIST_STEPS}; first {ms[0]:.3f}) against the plain step's "
+          f"{plain_step_ms:.3f} ms in this phase and {train['step_ms']:.3f} "
+          f"ms in phase 6; peak memory {peak / 2**30:.3f} GiB (phase 6 "
+          f"{train['peak_bytes'] / 2**30:.3f}); losses {losses}, max rel "
+          f"diff from phase 6 {rel:.3g}; params max abs err {param_err:.3g}; "
+          f"losses and params bit-equal to the plain steps: {bit_equal}")
+    rows, launches, wall_ms, device_ms = profile_call(
+        "sharded train step", lambda: bundle.step(state, dbatch), {}, n=1)
+    check(device_ms is not None, "the profiler saw the sharded step's "
+                                 "kernels")
+    print(f"  plain step (phase 6): wall {train['profiled_wall_ms']:.3f} ms, "
+          f"device busy {train['device_busy_ms']:.3f} ms (idle share "
+          f"{train['idle_share']:.3f}), {train['launches_per_step']} "
+          f"kernel launches")
+    return dict(arch="qwen3-0.6b", mesh="data=1 x model=1", rules="fsdp",
+                steps=DIST_STEPS, losses=losses, max_rel_loss_diff=rel,
+                param_max_abs_err=param_err, bit_equal_to_plain=bit_equal,
+                step_ms=step_ms, first_step_ms=ms[0],
+                plain_step_ms=plain_step_ms, phase6_step_ms=train["step_ms"],
+                peak_bytes=peak, phase6_peak_bytes=train["peak_bytes"],
+                profiled_wall_ms=wall_ms, device_busy_ms=device_ms,
+                idle_share=1 - device_ms / wall_ms,
+                launches_per_step=launches,
+                phase6_launches_per_step=train["launches_per_step"],
+                phase6_idle_share=train["idle_share"],
+                top_kernels=[[r.key[:80], r.self_device_time_total / 1e3]
+                             for r in rows[:5]])
+
+
+def dist_int8_sync(model, state0, batch):
+    """cross_pod_grad_sync over a one-rank ``pod`` group on the gradients
+    of one plain qwen3-0.6b step: on one rank the sum over pods is the
+    rank's own, so the synced gradients must equal quantize-dequantize
+    bit for bit and the error what that dropped. Timed by CUDA events
+    against its bound: the gradients read once (bf16), the synced
+    gradients (bf16) and the fp32 error written once, and 11 fp32
+    operations per element (abs, max, two divisions, round, two clamps,
+    two products, the sum over pods, a difference)."""
+    seen = []
+    make_train_step(model, TRAIN_OPT,
+                    grad_transform=lambda g: seen.append(g) or g)(state0,
+                                                                  batch)
+    grads = seen[0]
+    group = init_device_mesh("cuda", (1,),
+                             mesh_dim_names=("pod",)).get_group("pod")
+    synced, err = cross_pod_grad_sync(grads, None, group)
+    for g, s, e in zip(tree_leaves(grads), tree_leaves(synced),
+                       tree_leaves(err)):
+        dq = dequantize_int8(*quantize_int8(g))
+        check(s.dtype == g.dtype and torch.equal(s, dq.to(g.dtype)),
+              "synced gradients equal quantize-dequantize bit for bit")
+        check(torch.equal(e, g.float() - dq), "the error is what the "
+                                              "quantization dropped")
+    del synced, err
+    n = sum(g.numel() for g in tree_leaves(grads))
+    nbytes = sum(g.numel() * (2 * g.element_size() + 4)
+                 for g in tree_leaves(grads))
+    ms = time_ms(lambda: cross_pod_grad_sync(grads, None, group),
+                 reps=SYNC_REPS)
+    bound_ms, bound_by = bound(11 * n, nbytes, torch.float32)
+    print(f"int8 gradient sync over a one-rank pod group, {n:,} gradients "
+          f"({len(tree_leaves(grads))} leaves, bf16): {ms:.3f} ms per call "
+          f"(CUDA events, mean of {SYNC_REPS}), bound {bound_ms:.3f} ms "
+          f"({bound_by}: {nbytes / 1e9:.3f} GB); synced = "
+          f"quantize-dequantize and error = what it dropped, bit for bit")
+    return dict(params=n, leaves=len(tree_leaves(grads)), ms=ms,
+                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                bit_equal=True)
+
+
+def dist_checkpoint(mesh):
+    """The 2-layer full-width qwen3-0.6b state (phase 6's resilient-loop
+    size) placed on the mesh by the FSDP rules, saved to build/ as a
+    sharded checkpoint and restored onto the mesh with ``shardings=``:
+    every leaf a DTensor placed as before and equal bit for bit."""
+    cfg = get_config("qwen3-0.6b", n_layers=2, remat="dots")
+    params, axes = Model(cfg).build(seed=0)
+    state = adamw_init(params)
+    shardings = tree_shardings(mesh, FSDP_RULES, train_state_axes(axes),
+                               state)
+    dstate = distribute_tree(state, shardings)
+    root = Path(__file__).resolve().parent / "build" / "dist_smoke_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        path = save_checkpoint(str(root), 1, dstate)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
+        t0 = time.perf_counter()
+        back, step, _ = restore_checkpoint(str(root), like=dstate,
+                                           shardings=shardings)
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(step == 1, "the checkpoint's step")
+    for a, b in zip(tree_leaves(dstate), tree_leaves(back)):
+        check(isinstance(b, DTensor) and b.placements == a.placements,
+              "a restored leaf is placed as it was saved")
+        check(torch.equal(b.full_tensor(), a.full_tensor()),
+              "a restored leaf equals the saved one bit for bit")
+    n = sum(t.numel() for t in tree_leaves(params))
+    print(f"sharded checkpoint of qwen3-0.6b at full width, 2 layers "
+          f"({n / 1e6:.1f}M params, {nbytes / 1e9:.3f} GB of files): saved "
+          f"in {save_s:.2f} s, restored onto the mesh in {restore_s:.2f} s, "
+          f"every leaf bit-equal")
+    return dict(params=n, bytes=nbytes, save_s=save_s, restore_s=restore_s,
+                bit_equal=True)
+
+
+def distribution_on_card(model, state0, batch, train):
+    """Phase 9 on a one-rank NCCL group, met through a store in this
+    process; the group is destroyed at the end."""
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        result = dict(train_step=dist_train_step(mesh, model, state0, batch,
+                                                 train))
+        result["int8_sync"] = dist_int8_sync(model, state0, batch)
+        result["checkpoint"] = dist_checkpoint(mesh)
+    finally:
+        dist.destroy_process_group()
+    result["phase_wall_s"] = time.perf_counter() - t0
+    print(f"distribution on the card took {result['phase_wall_s']:.1f} s")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1826,6 +2045,8 @@ def main() -> int:
     train, model, state0, batch = train_main_path()
     print("the memory knobs (qwen3-0.6b bf16, 8 x 512, from one state):")
     train["knobs"] = train_knobs(model, state0, batch)
+    # phase 9 starts from this model, state and batch again
+    train_model, train_state0, train_batch = model, state0, batch
     del model, state0, batch
     torch.cuda.empty_cache()
     train["resilient"] = train_resilient()
@@ -1852,6 +2073,16 @@ def main() -> int:
            ssd_ops.inter_launches)
     check(got == (0, 0, 0, 0), f"no kernel launched by the fleet engine, "
                                f"got {got}")
+
+    # distribution trains through the plain paths too: no kernel launches
+    print("distribution on the card:")
+    distribution = distribution_on_card(train_model, train_state0,
+                                        train_batch, train)
+    del train_model, train_state0, train_batch
+    got = (flash_ops.launches, rms_ops.launches, ssd_ops.intra_launches,
+           ssd_ops.inter_launches)
+    check(got == (0, 0, 0, 0), f"no kernel launched by the distribution "
+                               f"phase, got {got}")
 
     kernels = [
         dict(name="flash_attention", route="cuda",
@@ -1912,6 +2143,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"aarc": aarc}))
     print(json.dumps({"fleet": fleet}))
+    print(json.dumps({"distribution": distribution}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

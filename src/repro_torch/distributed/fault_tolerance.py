@@ -6,12 +6,16 @@
   * ``ResilientLoop``: wraps the train loop: checkpoints every
     ``ckpt_every`` steps, and on a step failure (a device error, an
     injected fault) restores the latest checkpoint and replays. Data is
-    keyed by step, so the replay is exact.
+    keyed by step, so the replay is exact. A sharded state restores onto
+    its mesh through ``shardings``.
+  * ``elastic_reshard``: moves a TrainState onto a *new* mesh (a grown or
+    shrunk device set): each leaf is gathered whole and distributed by
+    the Sharding its logical axes give on the new mesh.
 
 The loop catches ``RuntimeError``, and a CUDA error or
 ``torch.OutOfMemoryError`` is one: a run that injects no fault should
 check that ``failures == restores == 0``, or a real fault hides behind a
-restore. ``elastic_reshard`` comes with the distribution slice.
+restore.
 """
 from __future__ import annotations
 
@@ -22,7 +26,10 @@ import time
 from typing import Callable, Dict, List, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
+from repro_torch.distributed.sharding import ShardingRules, tree_shardings
+from repro_torch.models.transformer import tree_map
 from repro_torch.training.checkpoint import (latest_step, restore_checkpoint,
                                              save_checkpoint)
 
@@ -72,7 +79,8 @@ class ResilientLoop:
     def __init__(self, step_fn: Callable, state: Tree, *,
                  ckpt_dir: str, ckpt_every: int = 50, keep: int = 3,
                  fault_hook: Optional[Callable[[int], None]] = None,
-                 watchdog: Optional[StepWatchdog] = None):
+                 watchdog: Optional[StepWatchdog] = None,
+                 shardings: Optional[Tree] = None):
         self.step_fn = step_fn
         self.state = state
         self.ckpt_dir = ckpt_dir
@@ -80,11 +88,12 @@ class ResilientLoop:
         self.keep = keep
         self.fault_hook = fault_hook
         self.watchdog = watchdog or StepWatchdog()
+        self.shardings = shardings
         self.failures = 0
         self.restores = 0
 
     def _current_step(self) -> int:
-        return int(self.state["step"])
+        return int(_whole(self.state["step"]))
 
     def _wait(self) -> None:
         """Wait for the step's work, as the reference's
@@ -120,8 +129,8 @@ class ResilientLoop:
                     # nothing saved yet: re-init from the step-0 state we
                     # were constructed with (equivalent to job restart)
                     raise
-                self.state, _, _ = restore_checkpoint(self.ckpt_dir,
-                                                      like=self.state)
+                self.state, _, _ = restore_checkpoint(
+                    self.ckpt_dir, like=self.state, shardings=self.shardings)
                 self.restores += 1
         # final checkpoint so a following job can resume exactly here
         save_checkpoint(self.ckpt_dir, self._current_step(), self.state,
@@ -130,3 +139,23 @@ class ResilientLoop:
                           restores=self.restores,
                           stragglers=len(self.watchdog.straggler_steps),
                           final_step=self._current_step())
+
+
+def _whole(x: torch.Tensor) -> torch.Tensor:
+    """The full tensor of a DTensor (a collective), else ``x``."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def elastic_reshard(state: Tree, axes: Tree, new_mesh,
+                    rules: ShardingRules) -> Tree:
+    """Re-place a TrainState onto a different mesh (elastic scaling).
+
+    Each leaf is gathered whole (every rank of its mesh joins) and
+    distributed with the Sharding its logical axes give on the new mesh.
+    (On a real cluster this is a resharding transfer; the sharding
+    *derivation*, the part that must be right, is identical.)
+    """
+    shardings = tree_shardings(new_mesh, rules, axes, state)
+    return tree_map(lambda x, s: distribute_tensor(_whole(x), s.mesh,
+                                                   s.placements),
+                    state, shardings)

@@ -1,2 +1,2 @@
-"""Launchers of the port (counterpart of ``repro.launch``); only the
-training launcher is ported so far."""
+"""Launchers of the port (counterpart of ``repro.launch``): the mesh
+helpers, the sharded train-step builder and the training launcher."""

@@ -43,6 +43,31 @@ def make_attention_params(gen, d_model: int, n_heads: int, kv_heads: int,
     return params
 
 
+def attention_axes(*, qkv_bias: bool = False, qk_norm: bool = False
+                   ) -> Dict[str, tuple]:
+    """The logical axes of :func:`make_attention_params`' tree."""
+    axes = {"wq": ("embed", "qkv"), "wk": ("embed", "kv_qkv"),
+            "wv": ("embed", "kv_qkv"), "wo": ("qkv", "embed")}
+    if qkv_bias:
+        axes.update(bq=("qkv",), bk=("kv_qkv",), bv=("kv_qkv",))
+    if qk_norm:
+        axes.update(q_norm=("head_dim",), k_norm=("head_dim",))
+    return axes
+
+
+def _split_heads(t: torch.Tensor, n: int, head_dim: int) -> torch.Tensor:
+    """(b, s, n * head_dim) viewed as (b, s, n, head_dim). On a mesh the
+    heads shard over the model axis only where ``n`` divides it; else the
+    projection is replicated over it first."""
+    # imported here: repro_torch.distributed imports the training code,
+    # which imports this module
+    from repro_torch.distributed.sharding import constrain
+    b, s = t.shape[:2]
+    t = constrain(t, ("batch", "act_seq", "heads_act", None),
+                  shape=(b, s, n, head_dim))
+    return t.reshape(b, -1, n, head_dim)
+
+
 def _project_qkv(params, x: torch.Tensor, kv_x: torch.Tensor, n_heads: int,
                  kv_heads: int, head_dim: int,
                  positions: Optional[torch.Tensor],
@@ -54,9 +79,9 @@ def _project_qkv(params, x: torch.Tensor, kv_x: torch.Tensor, n_heads: int,
     v = kv_x @ params["wv"]
     if "bq" in params:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    q = q.reshape(b, -1, n_heads, head_dim)
-    k = k.reshape(b, -1, kv_heads, head_dim)
-    v = v.reshape(b, -1, kv_heads, head_dim)
+    q = _split_heads(q, n_heads, head_dim)
+    k = _split_heads(k, kv_heads, head_dim)
+    v = _split_heads(v, kv_heads, head_dim)
     if "q_norm" in params:                       # qwen3-style per-head qk-norm
         q = rms_norm(q, params["q_norm"])
         k = rms_norm(k, params["k_norm"])
@@ -72,42 +97,65 @@ def _project_qkv(params, x: torch.Tensor, kv_x: torch.Tensor, n_heads: int,
 GQA_EXPAND_MIN_SQ = 128
 
 
+#: per_shard roles of attention's operands: its products are independent
+#: per (batch, head)
+_BSHD = ("b", None, "h", None)
+_BHQK = ("b", "h", None, None)
+_BHGQK = ("b", "h", None, None, None)
+
+
 def _sdpa_plain(q, k, v, *, causal: bool, q_offset: int = 0,
                 kv_len_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q: (b, sq, h, d); k/v: (b, skv, hkv, d) with GQA head grouping.
 
     Probabilities are cast to q's type before the PV product, as in the
-    reference.
+    reference. Without GQA groups the scores and probabilities are pinned
+    by logical axes: over heads where they divide the model axis, else
+    over the query sequence.
     """
+    # imported here: repro_torch.distributed imports the training code,
+    # which imports this module
+    from repro_torch.distributed.sharding import constrain, per_shard
     b, sq, h, d = q.shape
     hkv = k.shape[2]
     group = h // hkv
     skv = k.shape[1]
     qpos = torch.arange(sq, device=q.device) + q_offset
     kpos = torch.arange(skv, device=q.device)
+    # on a mesh every product runs on the local (batch, head) shards
     if group > 1 and sq >= GQA_EXPAND_MIN_SQ:
-        k = k.repeat_interleave(group, dim=2)
-        v = v.repeat_interleave(group, dim=2)
+        k, v = per_shard(lambda k, v: (k.repeat_interleave(group, dim=2),
+                                       v.repeat_interleave(group, dim=2)),
+                         (k, v), (_BSHD, _BSHD), (_BSHD, _BSHD))
         hkv, group = h, 1
     if group == 1:
-        scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / (d ** 0.5)
+        score_axes = ("batch", "heads_act", "act_seq", None)
+        scores = per_shard(lambda q, k: torch.einsum(
+            "bqhd,bkhd->bhqk", q, k).float() / (d ** 0.5), (q, k),
+            (_BSHD, _BSHD), _BHQK)
+        scores = constrain(scores, score_axes)
         if causal:
             scores = torch.where(kpos[None, :] <= qpos[:, None], scores,
                                  NEG_INF)
         if kv_len_mask is not None:
             scores = torch.where(kv_len_mask[:, None, None, :], scores,
                                  NEG_INF)
-        probs = torch.softmax(scores, dim=-1).to(q.dtype)
-        return torch.einsum("bhqk,bkhd->bqhd", probs, v)
-    qg = q.reshape(b, sq, hkv, group, d)
-    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float() / (d ** 0.5)
+        probs = constrain(torch.softmax(scores, dim=-1).to(q.dtype),
+                          score_axes)
+        return per_shard(lambda p, v: torch.einsum("bhqk,bkhd->bqhd", p, v),
+                         (probs, v), (_BHQK, _BSHD), _BSHD)
+    # the query heads grouped by their kv head: (b, sq, hkv, group, d)
+    scores = per_shard(lambda q, k: torch.einsum(
+        "bqhgd,bkhd->bhgqk", q.reshape(*q.shape[:2], k.shape[2], group, d),
+        k).float() / (d ** 0.5), (q, k), (_BSHD, _BSHD), _BHGQK)
     if causal:
         scores = torch.where(kpos[None, :] <= qpos[:, None], scores, NEG_INF)
     if kv_len_mask is not None:                 # (b, skv) valid-key mask
         scores = torch.where(kv_len_mask[:, None, None, None, :], scores,
                              NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+    out = per_shard(lambda p, v: torch.einsum("bhgqk,bkhd->bqhgd", p, v),
+                    (probs, v), (_BHGQK, _BSHD), ("b", None, "h", None, None))
     return out.reshape(b, sq, h, d)
 
 

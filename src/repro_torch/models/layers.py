@@ -2,6 +2,9 @@
 
 Conventions kept from the reference:
   * params are dicts of tensors; weights are stored as (in, out);
+  * every maker has a sibling ``*_axes`` that returns the reference
+    maker's logical axes: a tree of the same structure whose leaves are
+    tuples of logical axis names (see repro_torch.distributed.sharding);
   * compute dtype is the activation dtype; norms accumulate in fp32.
 """
 from __future__ import annotations
@@ -12,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 Params = Dict[str, torch.Tensor]
+Axes = Dict[str, object]
 
 
 # --------------------------------------------------------------------------
@@ -73,6 +77,16 @@ def make_norm_params(d: int, norm_type: str, dtype, device) -> Params:
     raise ValueError(norm_type)
 
 
+def norm_axes(norm_type: str) -> Axes:
+    if norm_type == "rmsnorm":
+        return {"w": ("embed",)}
+    if norm_type == "layernorm":
+        return {"w": ("embed",), "b": ("embed",)}
+    if norm_type == "nonparametric":
+        return {}
+    raise ValueError(norm_type)
+
+
 def apply_norm(params: Params, x: torch.Tensor, norm_type: str) -> torch.Tensor:
     if norm_type == "rmsnorm":
         return rms_norm(x, params["w"])
@@ -129,6 +143,16 @@ def make_mlp_params(gen, d_model: int, d_ff: int, mlp_type: str, dtype,
     raise ValueError(mlp_type)
 
 
+def mlp_axes(mlp_type: str) -> Axes:
+    if mlp_type == "swiglu":
+        return {"gate": ("embed", "mlp"), "up": ("embed", "mlp"),
+                "down": ("mlp", "embed")}
+    if mlp_type == "gelu":
+        return {"up": ("embed", "mlp"), "up_b": ("mlp",),
+                "down": ("mlp", "embed"), "down_b": ("embed",)}
+    raise ValueError(mlp_type)
+
+
 def apply_mlp(params: Params, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
     if mlp_type == "swiglu":
         h = F.silu(x @ params["gate"]) * (x @ params["up"])
@@ -152,6 +176,13 @@ def make_embed_params(gen, vocab: int, d_model: int, dtype, tie: bool,
         params["out"] = normal(gen, (d_model, vocab), dtype, d_model ** -0.5,
                                device)
     return params
+
+
+def embed_axes(tie: bool) -> Axes:
+    axes = {"tok": ("vocab", "embed")}
+    if not tie:
+        axes["out"] = ("embed", "vocab")
+    return axes
 
 
 def embed_tokens(params: Params, tokens: torch.Tensor) -> torch.Tensor:

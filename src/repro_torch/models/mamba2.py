@@ -71,6 +71,16 @@ def make_mamba2_params(gen, d_model: int, cfg: SSMConfig, dtype,
     }
 
 
+def mamba2_axes() -> Tree:
+    """The logical axes of :func:`make_mamba2_params`' tree."""
+    return {"z_proj": ("embed", "inner"), "x_proj": ("embed", "inner"),
+            "b_proj": ("embed", "state"), "c_proj": ("embed", "state"),
+            "dt_proj": ("embed", "ssm_heads"), "conv_x": ("conv", "inner"),
+            "A_log": ("ssm_heads",), "dt_bias": ("ssm_heads",),
+            "D": ("ssm_heads",), "norm_w": ("inner",),
+            "out_proj": ("inner", "embed")}
+
+
 def softplus(x: torch.Tensor) -> torch.Tensor:
     """log(1 + e^x) everywhere, as ``jax.nn.softplus``; ``F.softplus``
     returns x itself above its threshold of 20."""
@@ -78,7 +88,16 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv along seq. x: (b, s, ch), w: (k, ch)."""
+    """Depthwise causal conv along seq. x: (b, s, ch), w: (k, ch). On a
+    mesh it runs on the local (batch, channel) shards."""
+    # imported here: repro_torch.distributed imports the training code,
+    # which imports the models
+    from repro_torch.distributed.sharding import per_shard
+    return per_shard(_causal_conv_local, (x, w),
+                     (("b", None, "c"), (None, "c")), ("b", None, "c"))
+
+
+def _causal_conv_local(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     k = w.shape[0]
     xp = F.pad(x, (0, 0, k - 1, 0))
     out = torch.zeros_like(x)
@@ -188,7 +207,13 @@ def apply_mamba2(params: Tree, x: torch.Tensor, cfg: SSMConfig,
         from repro_torch.kernels.ssd_scan import ops as ssd_ops
         y, h_last = ssd_ops.ssd_scan(xh, bm, cm, log_a, dt, chunk=cfg.chunk)
     else:
-        y, h_last = _ssd_chunked(xh, bm, cm, log_a, dt, cfg)
+        # on a mesh the scan runs on the local (batch, head) shards
+        from repro_torch.distributed.sharding import per_shard
+        y, h_last = per_shard(
+            lambda *a: _ssd_chunked(*a, cfg), (xh, bm, cm, log_a, dt),
+            (("b", None, "h", None), ("b", None, None), ("b", None, None),
+             ("b", None, "h"), ("b", None, "h")),
+            (("b", None, "h", None), ("b", "h", None, None)))
     y = y + params["D"].to(y.dtype)[None, None, :, None] * xh
     y = y.reshape(bsz, s, di)
     y = rms_norm(y * F.silu(z).to(y.dtype), params["norm_w"])

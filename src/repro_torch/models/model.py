@@ -26,7 +26,11 @@ Params and caches are nested dicts of tensors in the reference layout:
 weights stored as (in, out) and a leading ``layers`` axis on the block
 stack (two, ``(segments, layers)``, on the vision model's self layers),
 and a Python list where the reference keeps one (the xLSTM layers), so
-the bridge from the reference is a plain tree map.
+the bridge from the reference is a plain tree map. Every leaf has a
+parallel *logical axes* annotation (a tuple of names; ``param_axes``,
+``make_cache``) that repro_torch.distributed.sharding maps onto a mesh,
+and the model pins its large intermediates by those names
+(``constrain``), a no-op outside ``activation_sharding``.
 """
 from __future__ import annotations
 
@@ -43,26 +47,33 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import xlstm as xl
-from repro_torch.models.layers import (apply_norm, dense_init, embed_tokens,
-                                       make_embed_params, make_norm_params,
-                                       unembed)
+from repro_torch.models.layers import (apply_norm, dense_init, embed_axes,
+                                       embed_tokens, make_embed_params,
+                                       make_norm_params, norm_axes, unembed)
 from repro_torch.models.moe import MoEConfig
 from repro_torch.models.transformer import (BLOCK_CACHE_AXES,
                                             BLOCK_CACHE_AXES_Q, BlockConfig,
                                             apply_cross_block,
                                             apply_decoder_block,
+                                            cross_block_axes,
                                             cross_source_kv,
                                             decode_cross_block,
                                             decode_decoder_block,
+                                            decoder_block_axes,
                                             init_block_cache, layer_slice,
                                             make_cross_block,
                                             make_decoder_block,
                                             prefill_cross_block,
                                             prefill_decoder_block,
-                                            stack_params, tree_leaves,
-                                            tree_map, unstack_params)
+                                            prepend_axis, stack_params,
+                                            tree_leaves, tree_map,
+                                            unstack_params)
+from repro_torch.distributed.sharding import constrain, per_shard
 
 Tree = Dict[str, object]
+
+#: the logical axes the residual stream is pinned to between layers
+ACT_AXES = ("batch", "act_seq", None)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,6 +204,51 @@ class Model:
                  "audio": self._build_audio, "vlm": self._build_vlm}
         return build[self.cfg.family](gen)
 
+    def build(self, seed: int = 0) -> Tuple[Tree, Tree]:
+        """Concrete (params, logical axes)."""
+        return self.init(seed), self.param_axes()
+
+    def abstract_params(self) -> Tuple[Tree, Tree]:
+        """(params on the meta device, logical axes): shapes and dtypes
+        with no storage and nothing drawn, as the reference's
+        ``eval_shape``."""
+        return Model(self.cfg, device="meta").init(), self.param_axes()
+
+    def param_axes(self) -> Tree:
+        """The logical axes of :meth:`init`'s tree, as the reference's
+        ``build`` returns them: the block stack's leading ``layers`` axis
+        (two of them on the vision model's self layers), the xLSTM's
+        per-layer list."""
+        cfg = self.cfg
+        family = cfg.family
+        axes = {"embed": embed_axes(cfg.tie_embeddings),
+                "final_norm": norm_axes(cfg.norm)}
+        if family in ("dense", "moe"):
+            axes["layers"] = prepend_axis(decoder_block_axes(cfg.block_cfg()))
+        elif family == "hybrid":
+            axes["layers"] = prepend_axis({"mamba": m2.mamba2_axes(),
+                                           "norm": norm_axes(cfg.norm)})
+            axes["shared"] = decoder_block_axes(self._shared_cfg())
+        elif family == "ssm":
+            block = {"mlstm": xl.mlstm_axes, "slstm": xl.slstm_axes}
+            axes["layers"] = [{"block": block[kind](),
+                               "norm": norm_axes(cfg.norm)}
+                              for kind in self._xlstm_kinds()]
+        elif family == "audio":
+            bcfg = cfg.block_cfg(moe=False)
+            axes["embed"]["pos"] = (None, "embed")
+            axes["enc_layers"] = prepend_axis(decoder_block_axes(bcfg))
+            axes["enc_norm"] = norm_axes(cfg.norm)
+            axes["layers"] = prepend_axis(cross_block_axes(bcfg,
+                                                           self_attn=True))
+        else:
+            bcfg = cfg.block_cfg(moe=False)
+            axes["segments"] = prepend_axis(
+                {"self": prepend_axis(decoder_block_axes(bcfg)),
+                 "cross": cross_block_axes(bcfg, gated=True,
+                                           self_attn=False)})
+        return axes
+
     def _embed_params(self, gen) -> Tree:
         cfg = self.cfg
         return make_embed_params(gen, cfg.padded_vocab, cfg.d_model,
@@ -233,7 +289,17 @@ class Model:
         if cfg.padded_vocab != cfg.vocab:          # mask pad columns
             pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab
             logits = logits.masked_fill(pad, -1e30)
-        return logits
+        return constrain(logits, ("batch", "act_seq", "vocab"))
+
+    def _embed_tokens(self, params: Tree, tokens: torch.Tensor
+                      ) -> torch.Tensor:
+        """The token embeddings; on a mesh the table is gathered whole and
+        each rank looks up its own tokens (the lookup's backward has no
+        DTensor strategy in torch 2.11)."""
+        x = per_shard(lambda ids, tok: embed_tokens({"tok": tok}, ids),
+                      (tokens, params["embed"]["tok"]),
+                      (("b", None), (None, None)), ("b", None, None))
+        return constrain(x, ACT_AXES)
 
     def _zero_aux(self, x: torch.Tensor) -> torch.Tensor:
         return torch.zeros((), dtype=torch.float32, device=x.device)
@@ -245,7 +311,7 @@ class Model:
             lambda lp, h: apply_decoder_block(lp, h, bcfg), cfg.remat)
         aux = self._zero_aux(x)
         for lp in unstack_params(params["layers"], cfg.n_layers):
-            x, a = block(lp, x)
+            x, a = block(lp, constrain(x, ACT_AXES))
             aux = aux + a
         return apply_norm(params["final_norm"], x, cfg.norm), aux
 
@@ -275,7 +341,7 @@ class Model:
         body = _maybe_remat(body, cfg.remat)
         for lp, flag in zip(unstack_params(params["layers"], cfg.n_layers),
                             self._shared_flags()):
-            x = body(lp, x, bool(flag))
+            x = body(lp, constrain(x, ACT_AXES), bool(flag))
         return apply_norm(params["final_norm"], x, cfg.norm), self._zero_aux(x)
 
     # -- ssm (xlstm) -------------------------------------------------------------
@@ -308,7 +374,7 @@ class Model:
 
         layer = _maybe_remat(layer, cfg.remat)
         for lp, kind in zip(params["layers"], self._xlstm_kinds()):
-            x = layer(lp, x, kind)
+            x = layer(lp, constrain(x, ACT_AXES), kind)
         return apply_norm(params["final_norm"], x, cfg.norm), self._zero_aux(x)
 
     # -- audio (whisper encoder-decoder over stub frame embeddings) -------------
@@ -348,14 +414,14 @@ class Model:
         block = _maybe_remat(lambda lp, h: apply_decoder_block(
             lp, h, enc_cfg, causal=False)[0], cfg.remat)
         for lp in unstack_params(params["enc_layers"], cfg.n_encoder_layers):
-            x = block(lp, x)
+            x = block(lp, constrain(x, ACT_AXES))
         return apply_norm(params["enc_norm"], x, cfg.norm)
 
     def _embed_positions(self, params: Tree, tokens: torch.Tensor
                          ) -> torch.Tensor:
         """Token embeddings plus the learned positions 0..s-1."""
         s = tokens.shape[1]
-        return embed_tokens(params["embed"], tokens) + \
+        return self._embed_tokens(params, tokens) + \
             params["embed"]["pos"][:s]
 
     def _audio_forward(self, params: Tree, tokens: torch.Tensor,
@@ -367,7 +433,7 @@ class Model:
         block = _maybe_remat(
             lambda lp, h, kv: apply_cross_block(lp, h, kv, dec_cfg), cfg.remat)
         for lp in unstack_params(params["layers"], cfg.n_layers):
-            x = block(lp, x, enc_out)
+            x = block(lp, constrain(x, ACT_AXES), enc_out)
         return apply_norm(params["final_norm"], x, cfg.norm), self._zero_aux(x)
 
     # -- vlm (llama-3.2-vision: gated cross-attention every k layers) -----------
@@ -408,7 +474,7 @@ class Model:
             lambda lp, h: apply_decoder_block(lp, h, bcfg)[0], cfg.remat)
         for seg in unstack_params(params["segments"], nseg):
             for lp in unstack_params(seg["self"], nself):
-                x = inner(lp, x)
+                x = inner(lp, constrain(x, ACT_AXES))
             x = apply_cross_block(seg["cross"], x, patches, bcfg, gated=True)
         return apply_norm(params["final_norm"], x, cfg.norm), self._zero_aux(x)
 
@@ -424,7 +490,7 @@ class Model:
         if family == "audio":
             x, aux = self._audio_forward(params, tokens, batch["frames"])
             return self._logits(params, x), aux
-        x = embed_tokens(params["embed"], tokens)
+        x = self._embed_tokens(params, tokens)
         if family == "hybrid":
             x, aux = self._hybrid_forward(params, x)
         elif family == "ssm":
@@ -441,8 +507,11 @@ class Model:
         labels = batch["labels"]
         valid = (labels >= 0).float()
         lse = torch.logsumexp(logits, dim=-1)
-        picked = torch.gather(logits, -1,
-                              labels.clamp(min=0)[..., None])[..., 0]
+        # the gather from vocab-sharded logits leaves each rank a masked
+        # partial sum, reduced here, at its own (b, s, 1) shape
+        picked = constrain(torch.gather(logits, -1,
+                                        labels.clamp(min=0)[..., None]),
+                           ACT_AXES)[..., 0]
         ce = (lse - picked) * valid
         n = valid.sum().clamp(min=1.0)
         ce_mean = ce.sum() / n
@@ -455,8 +524,6 @@ class Model:
         """Zero-initialised decode cache + its logical axes."""
         cfg, dev, dt = self.cfg, self.device, self.cfg.tdtype
         length = torch.zeros(batch, dtype=torch.int32, device=dev)
-        prepend = lambda axes, name="layers": {k: (name, *a)
-                                               for k, a in axes.items()}
         la = ("batch",)
         if cfg.family == "hybrid":
             n_apps = int(self._shared_flags().sum())
@@ -464,7 +531,7 @@ class Model:
             mamba = m2.init_mamba2_cache(batch, cfg.d_model, cfg.ssm, dt, dev)
             axes = {"mamba": {"h": ("layers", "batch", "inner", None, None),
                               "conv": ("layers", "batch", None, "inner")},
-                    "attn": prepend(BLOCK_CACHE_AXES), "length": la}
+                    "attn": prepend_axis(BLOCK_CACHE_AXES), "length": la}
             return {"mamba": _stacked(mamba, cfg.n_layers),
                     "attn": _stacked(one, n_apps), "length": length}, axes
         if cfg.family == "ssm":
@@ -494,11 +561,11 @@ class Model:
             ca = dict(BLOCK_CACHE_AXES, xk=("batch", None, None, None),
                       xv=("batch", None, None, None))
             return ({"layers": _stacked(one, cfg.n_layers), "length": length},
-                    {"layers": prepend(ca), "length": la})
+                    {"layers": prepend_axis(ca), "length": la})
         if cfg.family == "vlm":
             nseg, nself = self._vlm_seg()
             one = init_block_cache(batch, max_len, bcfg, dt, dev)
-            axes = {"self": prepend(prepend(BLOCK_CACHE_AXES, "seg")),
+            axes = {"self": prepend_axis(prepend_axis(BLOCK_CACHE_AXES, "seg")),
                     "cross": {"xk": ("seg", "batch", None, None, None),
                               "xv": ("seg", "batch", None, None, None)},
                     "length": la}
@@ -507,8 +574,9 @@ class Model:
                     "length": length}, axes
         one = init_block_cache(batch, max_len, cfg.block_cfg(), dt, dev,
                                quantized=cfg.kv_cache_quant)
-        axes = {"layers": prepend(BLOCK_CACHE_AXES_Q if cfg.kv_cache_quant
-                                  else BLOCK_CACHE_AXES),
+        axes = {"layers": prepend_axis(BLOCK_CACHE_AXES_Q
+                                       if cfg.kv_cache_quant
+                                       else BLOCK_CACHE_AXES),
                 "length": la}
         return {"layers": _stacked(one, cfg.n_layers), "length": length}, axes
 
@@ -527,12 +595,13 @@ class Model:
             caches = []
             for i in range(cfg.n_layers):
                 x, c = prefill_cross_block(layer_slice(params["layers"], i),
-                                           x, enc_out, bcfg, max_len)
+                                           constrain(x, ACT_AXES), enc_out,
+                                           bcfg, max_len)
                 caches.append(c)
             x = apply_norm(params["final_norm"], x, cfg.norm)
             return self._logits(params, x[:, -1:]), {"layers": stack(caches),
                                                      "length": length}
-        x = embed_tokens(params["embed"], tokens)
+        x = self._embed_tokens(params, tokens)
         if cfg.family == "hybrid":
             # mamba prefill runs the chunked scan and keeps final states;
             # shared-attn applications emit their own KV caches
@@ -578,7 +647,8 @@ class Model:
                 seg_kv = []
                 for j in range(nself):
                     x, _, c = prefill_decoder_block(
-                        layer_slice(sp["self"], j), x, bcfg, max_len)
+                        layer_slice(sp["self"], j), constrain(x, ACT_AXES),
+                        bcfg, max_len)
                     seg_kv.append(c)
                 self_kv.append(stack(seg_kv))
                 xk, xv = cross_source_kv(sp["cross"]["cross_attn"], patches,
@@ -596,7 +666,8 @@ class Model:
         caches = []
         for i in range(cfg.n_layers):
             x, _, c = prefill_decoder_block(layer_slice(params["layers"], i),
-                                            x, bcfg, max_len,
+                                            constrain(x, ACT_AXES), bcfg,
+                                            max_len,
                                             quantized=cfg.kv_cache_quant)
             caches.append(c)
         x = apply_norm(params["final_norm"], x, cfg.norm)
@@ -623,7 +694,7 @@ class Model:
         """
         cfg = self.cfg
         length = cache["length"]
-        x = embed_tokens(params["embed"], tokens)
+        x = self._embed_tokens(params, tokens)
         out = dict(cache, length=length + 1)
         if cfg.family == "hybrid":
             sb_cfg = self._shared_cfg()
@@ -653,7 +724,8 @@ class Model:
             pos = length.clamp(0, cfg.max_pos - 1).long()
             x = x + params["embed"]["pos"][pos][:, None, :]
             for i in range(cfg.n_layers):
-                x, _ = decode_cross_block(layer_slice(params["layers"], i), x,
+                x, _ = decode_cross_block(layer_slice(params["layers"], i),
+                                          constrain(x, ACT_AXES),
                                           layer_slice(cache["layers"], i),
                                           length, bcfg)
         elif cfg.family == "vlm":
@@ -663,7 +735,8 @@ class Model:
                 sp = layer_slice(params["segments"], i)
                 sc = layer_slice(cache["self"], i)
                 for j in range(nself):
-                    x, _ = decode_decoder_block(layer_slice(sp["self"], j), x,
+                    x, _ = decode_decoder_block(layer_slice(sp["self"], j),
+                                                constrain(x, ACT_AXES),
                                                 layer_slice(sc, j), length,
                                                 bcfg)
                 x, _ = decode_cross_block(
@@ -673,7 +746,8 @@ class Model:
             bcfg = cfg.block_cfg()
             for i in range(cfg.n_layers):
                 x, _ = decode_decoder_block(layer_slice(params["layers"], i),
-                                            x, layer_slice(cache["layers"], i),
+                                            constrain(x, ACT_AXES),
+                                            layer_slice(cache["layers"], i),
                                             length, bcfg)
         x = apply_norm(params["final_norm"], x, cfg.norm)
         return self._logits(params, x), out

@@ -88,6 +88,19 @@ def make_moe_params(gen, d_model: int, cfg: MoEConfig, dtype,
     return params
 
 
+def moe_axes(cfg: MoEConfig) -> Dict[str, tuple]:
+    """The logical axes of :func:`make_moe_params`' tree."""
+    axes = {"router": ("embed", "expert"),
+            "gate": ("expert", "embed", "mlp"),
+            "up": ("expert", "embed", "mlp"),
+            "down": ("expert", "mlp", "embed")}
+    if cfg.shared_ff > 0:
+        axes.update(shared_gate=("embed", "mlp"), shared_up=("embed", "mlp"),
+                    shared_down=("mlp", "embed"),
+                    shared_router=("embed", "null"))
+    return axes
+
+
 def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """``lax.top_k``: the k largest along the last axis, in descending
     order, the lower index first among equal values."""

@@ -25,10 +25,12 @@ import numpy as np
 import torch
 
 from repro_torch.models.attention import (_project_qkv, _sdpa_plain,
+                                          attention_axes,
                                           make_attention_params, sdpa)
 from repro_torch.models.layers import (apply_mlp, apply_norm, make_mlp_params,
-                                       make_norm_params)
-from repro_torch.models.moe import MoEConfig, apply_moe, make_moe_params
+                                       make_norm_params, mlp_axes, norm_axes)
+from repro_torch.models.moe import (MoEConfig, apply_moe, make_moe_params,
+                                    moe_axes)
 
 Tree = Dict[str, object]
 
@@ -91,6 +93,18 @@ def stack_params(n, maker: Callable[[], Tree]) -> Tree:
     return stack
 
 
+def is_axes_leaf(x) -> bool:
+    """Axes trees use tuples of strings (and Nones) as leaves."""
+    return isinstance(x, tuple) and all(isinstance(e, (str, type(None)))
+                                        for e in x)
+
+
+def prepend_axis(axes, name: str = "layers"):
+    """The axes of a stack of trees with ``axes``: ``name`` leads every
+    leaf, as on the stack's leading dim."""
+    return tree_map(lambda t: (name,) + t, axes)
+
+
 def layer_slice(tree: Tree, i: int) -> Tree:
     return tree_map(lambda x: x[i], tree)
 
@@ -124,11 +138,29 @@ def make_decoder_block(gen, cfg: BlockConfig, dtype, device) -> Tree:
     return params
 
 
+def decoder_block_axes(cfg: BlockConfig) -> Tree:
+    """The logical axes of :func:`make_decoder_block`'s tree."""
+    axes = {"attn": attention_axes(qkv_bias=cfg.qkv_bias,
+                                   qk_norm=cfg.qk_norm),
+            "norm1": norm_axes(cfg.norm), "norm2": norm_axes(cfg.norm)}
+    if cfg.moe is not None:
+        axes["moe"] = moe_axes(cfg.moe)
+    else:
+        axes["mlp"] = mlp_axes(cfg.mlp)
+    return axes
+
+
 def _ffn(params: Tree, h: torch.Tensor, cfg: BlockConfig
          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Second sublayer: MLP or MoE. Returns (out, aux_loss)."""
+    """Second sublayer: MLP or MoE. Returns (out, aux_loss). On a mesh the
+    MoE runs replicated: its dispatch (the capacity top-k over tokens, the
+    row map written in place, the gathers and sums of ``_Gather`` /
+    ``_Combine``) has no DTensor sharding strategy."""
     if cfg.moe is not None:
-        return apply_moe(params["moe"], h, cfg.moe)
+        # imported here: repro_torch.distributed imports the training
+        # code, which imports this module
+        from repro_torch.distributed.sharding import replicated
+        return replicated(apply_moe, params["moe"], h, cfg.moe)
     return (apply_mlp(params["mlp"], h, cfg.mlp),
             torch.zeros((), dtype=torch.float32, device=h.device))
 
@@ -294,6 +326,24 @@ def make_cross_block(gen, cfg: BlockConfig, dtype, device, *,
         params["gate_mlp"] = torch.zeros((), dtype=torch.float32,
                                          device=device)
     return params
+
+
+def cross_block_axes(cfg: BlockConfig, *, gated: bool = False,
+                     self_attn: bool = True) -> Tree:
+    """The logical axes of :func:`make_cross_block`'s tree; the gates are
+    scalars, with no axis."""
+    axes: Tree = {}
+    if self_attn:
+        axes["self_attn"] = attention_axes(qkv_bias=cfg.qkv_bias)
+        axes["norm_self"] = norm_axes(cfg.norm)
+    axes["cross_attn"] = attention_axes(qkv_bias=cfg.qkv_bias,
+                                        qk_norm=cfg.qk_norm and gated)
+    axes["norm_cross"] = norm_axes(cfg.norm)
+    axes["mlp"] = mlp_axes(cfg.mlp)
+    axes["norm_mlp"] = norm_axes(cfg.norm)
+    if gated:
+        axes.update(gate_attn=(), gate_mlp=())
+    return axes
 
 
 def _cross_attend(params: Tree, h: torch.Tensor, kv: torch.Tensor,

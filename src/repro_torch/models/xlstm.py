@@ -72,6 +72,24 @@ def make_mlstm_params(gen, d_model: int, cfg: XLSTMConfig, dtype,
     }
 
 
+def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``F.logsigmoid``; a DTensor gate runs it replicated, as DTensor has
+    no sharding strategy for its backward (``aten.log_sigmoid_backward``)."""
+    # imported here: repro_torch.distributed imports the training code,
+    # which imports the models
+    from repro_torch.distributed.sharding import replicated
+    return replicated(F.logsigmoid, x)
+
+
+def mlstm_axes() -> Tree:
+    """The logical axes of :func:`make_mlstm_params`' tree."""
+    return {"up": ("embed", "inner"), "conv": ("conv", "inner"),
+            "wq": ("inner", "inner"), "wk": ("inner", "inner"),
+            "wv": ("inner", "inner"), "w_if": ("inner", "gates"),
+            "b_if": ("gates",), "norm_w": ("inner",),
+            "down": ("inner", "embed")}
+
+
 def _mlstm_parallel(q, k, v, i_pre, f_pre) -> torch.Tensor:
     """Stabilised parallel mLSTM.
 
@@ -80,7 +98,7 @@ def _mlstm_parallel(q, k, v, i_pre, f_pre) -> torch.Tensor:
     h = (q k^T / sqrt(d) * exp(D - m)) v / max(|row sum|, exp(-m)).
     """
     s, d = q.shape[1], q.shape[3]
-    cum_f = torch.cumsum(F.logsigmoid(f_pre), dim=1)               # (b,s,h)
+    cum_f = torch.cumsum(_log_sigmoid(f_pre), dim=1)               # (b,s,h)
     dmat = (cum_f[:, :, None, :] - cum_f[:, None, :, :]
             + i_pre[:, None, :, :])                                # (b,i,j,h)
     mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
@@ -128,7 +146,7 @@ def _mlstm_chunked(q, k, v, i_pre, f_pre, chunk: int = 128,
         state0 = init_mlstm_state(b, h, d, q.device)
 
     # ---- phase A: every chunk at once -------------------------------------
-    cum = torch.cumsum(F.logsigmoid(fc), dim=2)   # (b,c,q,h), inclusive
+    cum = torch.cumsum(_log_sigmoid(fc), dim=2)   # (b,c,q,h), inclusive
     tri = torch.ones((chunk, chunk), dtype=torch.bool, device=q.device).tril()
     dmat = (cum[:, :, :, None, :] - cum[:, :, None, :, :]
             + ic[:, :, None, :, :])               # (b,c,q,k,h)
@@ -197,10 +215,18 @@ def apply_mlstm(params: Tree, x: torch.Tensor, cfg: XLSTMConfig,
     v = (xm @ params["wv"]).reshape(b, s, h, d)
     gates = xc.float() @ params["w_if"] + params["b_if"]
     i_pre, f_pre = gates.chunk(2, dim=-1)                          # (b,s,h)
+    # on a mesh the cell runs on the local (batch, head) shards
+    from repro_torch.distributed.sharding import per_shard
+    qkv, gate = ("b", None, "h", None), ("b", None, "h")
+    roles = (qkv, qkv, qkv, gate, gate)
     if s > MLSTM_CHUNK_THRESHOLD or return_state:
-        y, state = _mlstm_chunked(q, k, v, i_pre, f_pre)
+        y, state = per_shard(_mlstm_chunked, (q, k, v, i_pre, f_pre), roles,
+                             (qkv, {"C": ("b", "h", None, None),
+                                    "n": ("b", "h", None),
+                                    "m": ("b", "h")}))
     else:
-        y, state = _mlstm_parallel(q, k, v, i_pre, f_pre), None
+        y, state = per_shard(_mlstm_parallel, (q, k, v, i_pre, f_pre),
+                             roles, qkv), None
     y = rms_norm(y.reshape(b, s, di), params["norm_w"]) * F.silu(z)
     out = y @ params["down"]
     return (out, state, xm) if return_state else out
@@ -242,7 +268,7 @@ def decode_mlstm(params: Tree, x: torch.Tensor, cache: Tree,
     v = (xm @ params["wv"]).reshape(b, h, d)
     gates = xc.float() @ params["w_if"] + params["b_if"]
     i_pre, f_pre = gates.chunk(2, dim=-1)                          # (b,h)
-    log_f = F.logsigmoid(f_pre)
+    log_f = _log_sigmoid(f_pre)
     m_new = torch.maximum(log_f + cache["m"], i_pre)
     f_sc = torch.exp(log_f + cache["m"] - m_new)[..., None]
     i_sc = torch.exp(i_pre - m_new)[..., None]
@@ -285,6 +311,14 @@ def make_slstm_params(gen, d_model: int, cfg: XLSTMConfig, dtype,
     }
 
 
+def slstm_axes() -> Tree:
+    """The logical axes of :func:`make_slstm_params`' tree."""
+    return {"w_gates": ("embed", "gates"),
+            "r_gates": ("heads", "head_dim", "gates"),
+            "b_gates": ("gates",), "norm_w": ("embed",),
+            "ffn_up": ("embed", "mlp"), "ffn_down": ("mlp", "embed")}
+
+
 def init_slstm_state(batch: int, d_model: int, cfg: XLSTMConfig,
                      device) -> Tree:
     shape = (batch, cfg.n_heads, d_model // cfg.n_heads)
@@ -314,7 +348,7 @@ def _slstm_cell(params: Tree, state: Tree, wx: torch.Tensor) -> Tree:
     z_pre, i_pre, f_pre, o_pre = (wx + rec).chunk(4, dim=-1)       # (b,H,dh)
     z = torch.tanh(z_pre)
     o = torch.sigmoid(o_pre)
-    log_f = F.logsigmoid(f_pre)
+    log_f = _log_sigmoid(f_pre)
     m_new = torch.maximum(log_f + state["m"], i_pre)
     i_sc = torch.exp(i_pre - m_new)
     f_sc = torch.exp(log_f + state["m"] - m_new)
@@ -336,9 +370,15 @@ def apply_slstm(params: Tree, x: torch.Tensor, cfg: XLSTMConfig,
     """Full-sequence sLSTM recurrence + FFN. x: (b, s, d). One step per
     token, each about 15 small ops: the host's launch cost, not the
     device, bounds it on the card."""
+    # imported here: repro_torch.distributed imports the training code,
+    # which imports the models
+    from repro_torch.distributed.sharding import per_shard
     b, s, d = x.shape
-    wx = _slstm_heads(x.float() @ params["w_gates"] + params["b_gates"],
-                      cfg.n_heads)                                 # (b,s,H,4dh)
+    # on a mesh the gates are regrouped on the local batch shard: the
+    # regrouping's backward would flatten a sharded dim
+    wx = per_shard(lambda t: _slstm_heads(t, cfg.n_heads),
+                   (x.float() @ params["w_gates"] + params["b_gates"],),
+                   (("b", None, None),), ("b", None, None, None))  # (b,s,H,4dh)
     if state is None:
         state = init_slstm_state(b, d, cfg, x.device)
     hs = []

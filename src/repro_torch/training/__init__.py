@@ -9,13 +9,14 @@ package has a backward pass.
 """
 from repro_torch.training.checkpoint import (latest_step, restore_checkpoint,
                                              save_checkpoint)
-from repro_torch.training.data import SyntheticDataset
+from repro_torch.training.data import SyntheticDataset, batch_specs
 from repro_torch.training.optimizer import (AdamWConfig, TrainState,
-                                            adamw_init, adamw_update)
+                                            adamw_init, adamw_update,
+                                            train_state_axes)
 from repro_torch.training.train_step import make_train_step
 
 __all__ = [
     "AdamWConfig", "TrainState", "adamw_init", "adamw_update",
-    "make_train_step", "SyntheticDataset", "save_checkpoint",
-    "restore_checkpoint", "latest_step",
+    "train_state_axes", "make_train_step", "SyntheticDataset",
+    "batch_specs", "save_checkpoint", "restore_checkpoint", "latest_step",
 ]

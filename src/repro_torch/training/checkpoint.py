@@ -16,6 +16,12 @@ reference stores it: its raw 2-byte words under the ``.npy`` descr
 it from those words (viewed as int16, then as ``torch.bfloat16``),
 never by a numeric cast of the raw bits. (The reference itself cannot
 restore such a leaf: numpy has no cast from ``V2``.)
+
+A sharded state (DTensor leaves) is saved whole: every rank gathers each
+leaf with ``full_tensor()`` (a collective), rank 0 writes, and a barrier
+follows, so the files are those of the same state saved unsharded.
+``restore_checkpoint(..., shardings=)`` places each leaf on its mesh
+with ``distribute_tensor``, whatever mesh it was saved from.
 """
 from __future__ import annotations
 
@@ -27,6 +33,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 Tree = Dict[str, object]
 
@@ -49,6 +57,8 @@ def _flatten_with_paths(tree, prefix: str = "") -> List[Tuple[str, object]]:
 
 def _host_array(leaf: torch.Tensor) -> Tuple[np.ndarray, str]:
     """(host array, manifest dtype); a bf16 tensor as its raw int16 words."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     t = leaf.detach().cpu().contiguous()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy(), "bfloat16"
@@ -73,9 +83,19 @@ def _write_npz(path: str, shard: Dict[str, Tuple[np.ndarray, str]]) -> None:
 
 def save_checkpoint(directory: str, step: int, state: Tree,
                     extra: Optional[Dict] = None, keep: int = 3) -> str:
-    """Atomically write ``state`` under ``directory/step_<step>``."""
-    os.makedirs(directory, exist_ok=True)
+    """Atomically write ``state`` under ``directory/step_<step>``. With
+    DTensor leaves every rank must call this (each leaf is gathered);
+    rank 0 writes and all ranks leave after it has."""
     final = os.path.join(directory, f"step_{step:08d}")
+    leaves = _flatten_with_paths(state)
+    sharded = any(isinstance(leaf, DTensor) for _, leaf in leaves)
+    if sharded and dist.get_rank() != 0:
+        for _, leaf in leaves:
+            if isinstance(leaf, DTensor):
+                leaf.full_tensor()            # rank 0 gathers this leaf
+        dist.barrier()
+        return final
+    os.makedirs(directory, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -93,7 +113,7 @@ def save_checkpoint(directory: str, step: int, state: Tree,
             shard_idx += 1
             shard, shard_elems = {}, 0
 
-    for i, (path, leaf) in enumerate(_flatten_with_paths(state)):
+    for i, (path, leaf) in enumerate(leaves):
         arr, dtype = _host_array(leaf)
         key = f"leaf_{i}"
         manifest["leaves"].append({"path": path, "key": key,
@@ -112,6 +132,8 @@ def save_checkpoint(directory: str, step: int, state: Tree,
         shutil.rmtree(final)
     os.replace(tmp, final)
     _cleanup(directory, keep)
+    if sharded:
+        dist.barrier()
     return final
 
 
@@ -139,10 +161,14 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 def restore_checkpoint(directory: str, like: Tree,
-                       step: Optional[int] = None) -> Tuple[Tree, int, Dict]:
+                       step: Optional[int] = None,
+                       shardings: Optional[Tree] = None
+                       ) -> Tuple[Tree, int, Dict]:
     """Restore into the structure of ``like`` (a tree of tensors): each
-    leaf takes the type and the device of its ``like`` leaf. Returns
-    (state, step, extra)."""
+    leaf takes the type of its ``like`` leaf, and its device, or with
+    ``shardings`` (a tree of Shardings matching ``like``) the placement
+    on its mesh, which may differ from the mesh it was saved from.
+    Returns (state, step, extra)."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -153,7 +179,7 @@ def restore_checkpoint(directory: str, like: Tree,
     by_path = {e["path"]: e for e in manifest["leaves"]}
     shards: Dict[int, object] = {}
 
-    def load(kpath: str, leaf: torch.Tensor) -> torch.Tensor:
+    def load(kpath: str, leaf: torch.Tensor, sharding) -> torch.Tensor:
         entry = by_path.get(kpath)
         if entry is None:
             raise KeyError(f"checkpoint missing leaf {kpath}")
@@ -168,17 +194,22 @@ def restore_checkpoint(directory: str, like: Tree,
             t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
         else:
             t = torch.from_numpy(arr)
-        return t.to(device=leaf.device, dtype=leaf.dtype)
+        if sharding is None:
+            return t.to(device=leaf.device, dtype=leaf.dtype)
+        t = t.to(device=sharding.mesh.device_type, dtype=leaf.dtype)
+        return distribute_tensor(t, sharding.mesh, sharding.placements)
 
-    def rebuild(tree, prefix: str = ""):
+    def rebuild(tree, shd, prefix: str = ""):
         if isinstance(tree, dict):
-            return {k: rebuild(v, f"{prefix}[{k!r}]") for k, v in tree.items()}
+            return {k: rebuild(v, None if shd is None else shd[k],
+                               f"{prefix}[{k!r}]") for k, v in tree.items()}
         if isinstance(tree, list):
-            return [rebuild(v, f"{prefix}[{i}]") for i, v in enumerate(tree)]
-        return load(prefix, tree)
+            return [rebuild(v, None if shd is None else shd[i],
+                            f"{prefix}[{i}]") for i, v in enumerate(tree)]
+        return load(prefix, tree, shd)
 
     try:
-        state = rebuild(like)
+        state = rebuild(like, shardings)
     finally:
         for z in shards.values():
             z.close()

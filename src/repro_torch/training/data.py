@@ -8,6 +8,11 @@ Each (seed, step, host) triple keys its own numpy generator, so
     stores only ``step``, no reader state,
   * nothing is read from disk.
 
+``batch_specs`` gives the inputs of an (arch, shape) cell as tensors on
+the meta device, and ``BATCH_AXES`` their logical axes, for the step
+builders. Tokens and labels are int64 here, where the reference's are
+int32: torch indexes with int64.
+
 The stream is not the reference's (``jax.random``); parity tests feed
 both packages the reference's batches. The audio and vision frontends are
 stubs, as in the reference: ``frames``/``patches`` are gaussian
@@ -60,3 +65,38 @@ class SyntheticDataset:
             batch[stub] = torch.from_numpy(emb).to(device,
                                                    getattr(torch, self.dtype))
         return batch
+
+
+def batch_specs(cfg, shape, *, kind: str = "train") -> Dict[str, torch.Tensor]:
+    """Meta-device tensors for every model input of an (arch, shape) cell.
+
+    kind: "train" -> tokens+labels; "prefill" -> tokens; "decode" ->
+    single-token step (cache specs come from the model).
+    """
+    b, s = shape.global_batch, shape.seq_len
+    meta = lambda shp, dt: torch.empty(shp, dtype=dt, device="meta")
+    if kind == "train":
+        specs = {"tokens": meta((b, s), torch.int64),
+                 "labels": meta((b, s), torch.int64)}
+    elif kind == "prefill":
+        specs = {"tokens": meta((b, s), torch.int64)}
+    elif kind == "decode":
+        specs = {"tokens": meta((b, 1), torch.int64)}
+    else:
+        raise ValueError(kind)
+    stub = {"audio": "frames", "vlm": "patches"}.get(cfg.family)
+    if stub is not None and kind != "decode":
+        specs[stub] = meta((b, cfg.n_frontend_tokens, cfg.d_model),
+                           getattr(torch, cfg.dtype))
+    return specs
+
+
+#: logical sharding axes for every batch input (batch over data axes)
+BATCH_AXES = {"tokens": ("batch", "act_seq"),
+              "labels": ("batch", "act_seq"),
+              "frames": ("batch", None, None),
+              "patches": ("batch", None, None)}
+
+
+def batch_axes_for(specs: Dict) -> Dict:
+    return {k: BATCH_AXES[k] for k in specs}

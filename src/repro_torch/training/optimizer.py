@@ -46,6 +46,12 @@ def adamw_init(params: Tree) -> TrainState:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def train_state_axes(param_axes: Tree) -> Tree:
+    """Logical axes for the whole TrainState (m/v mirror params)."""
+    return {"params": param_axes, "m": param_axes, "v": param_axes,
+            "step": ()}
+
+
 def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     """Learning rate at ``step``: linear warmup, then cosine down to
     ``min_lr_ratio * lr`` at ``total_steps``, constant after."""

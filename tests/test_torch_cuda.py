@@ -501,3 +501,51 @@ def test_reduced_new_family_on_the_card_matches_cpu(cuda, arch, impl):
         got, gcache = gpu.decode_step(gparams, gcache,
                                       tokens[:, i:i + 1].to(cuda))
         _close(got, want, DEC_TOL)
+
+
+# --------------------------------------------------------------------------
+# distribution: the sharded train step on a one-rank NCCL mesh
+# --------------------------------------------------------------------------
+
+def test_sharded_train_step_on_a_one_rank_nccl_mesh(cuda):
+    """build_train_step's step of a reduced qwen3-0.6b (fp32, remat
+    "dots") on a (data=1, model=1) mesh of a one-rank NCCL group against
+    the plain step on the card from the same state and batch, at the
+    reference's sharded-step tolerances; the new state stays DTensors
+    placed as the old."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import reduced_config
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import tree_leaves
+    from repro_torch.training import (AdamWConfig, SyntheticDataset,
+                                      adamw_init, make_train_step)
+    cfg = reduced_config("qwen3-0.6b", n_layers=2, remat="dots")
+    opt = AdamWConfig(lr=1e-3)
+    model = Model(cfg, device=cuda)
+    state0 = adamw_init(model.init(seed=0))
+    batch = SyntheticDataset(vocab=cfg.vocab, seq_len=16, global_batch=8,
+                             device=cuda).batch_at(0)
+    ref_state, ref_m = make_train_step(model, opt)(state0, batch)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        bundle = build_train_step(cfg, Shape("t", 16, 8, "train"), mesh,
+                                  opt_cfg=opt)
+        state, dbatch = bundle.place(state0, batch)
+        new, m = bundle.step(state, dbatch)
+        np.testing.assert_allclose(float(m["loss"].full_tensor()),
+                                   float(ref_m["loss"]), rtol=1e-4)
+        for a, b, s in zip(tree_leaves(new), tree_leaves(ref_state),
+                           tree_leaves(state)):
+            assert isinstance(a, DTensor) and a.placements == s.placements
+            np.testing.assert_allclose(a.full_tensor().cpu().numpy(),
+                                       b.cpu().numpy(), atol=1e-4,
+                                       rtol=1e-3)
+    finally:
+        dist.destroy_process_group()

@@ -37,7 +37,7 @@ def test_port_imports_with_jax_and_repro_blocked():
     out = subprocess.run([sys.executable, "-c", _GUARDED_IMPORT], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 78      # every submodule walked
+    assert int(out.stdout.split()[-1]) >= 82      # every submodule walked
 
 
 def test_port_sources_import_no_jax_or_repro():
@@ -46,6 +46,7 @@ def test_port_sources_import_no_jax_or_repro():
         ROOT / "scripts" / "ssd_inter_variants.py",
         ROOT / "scripts" / "torch_train_profile.py",
         ROOT / "scripts" / "cpu_first_call_check.py",
+        ROOT / "scripts" / "torch_mesh_check.py",
         ROOT / "examples" / "torch_train_lm.py",
         ROOT / "examples" / "torch_autotune_stage_graph.py",
         ROOT / "examples" / "torch_fleet_sim.py"]
