@@ -98,10 +98,25 @@ Phases, in order; any failure exits non-zero:
      dropped, timed against its byte bound; and a sharded checkpoint of
      the 2-layer state written to build/ and restored onto the mesh, bit
      for bit, then deleted;
- 10. one JSON line of serving numbers (memory, int8), one of training
+ 10. distribution on the serving side, on the same one-rank NCCL group
+     and (data=1, model=1) mesh: full-width, full-depth qwen3-0.6b (flash
+     attention) and zamba2-1.2b (flash attention and both SSD passes) in
+     bf16 through ``build_prefill_step``'s sharded prefill of a 4 x 512
+     batch (the kernels run inside ``per_shard`` on the local shards),
+     the launch counts set to 0 just before and read just after (28
+     flash per qwen3 prefill; 6 flash and 38 of each SSD pass per zamba2
+     prefill), then 16 greedy steps of ``build_serve_step``'s step; the
+     logits, caches and greedy tokens held to the unsharded
+     ``Model.prefill`` / ``decode_step`` on the card (bitwise equality
+     printed), each call's time (CUDA events), launches and idle share
+     (torch.profiler) and peak memory beside the unsharded call's; then
+     the dry run (``repro_torch.launch.dryrun.run_cell``) of qwen3-0.6b at
+     prefill_32k and decode_32k on a fake (16, 16) mesh of 256 ranks, in a
+     subprocess, with its per-rank roofline terms;
+ 11. one JSON line of serving numbers (memory, int8), one of training
      numbers, one of per-kernel numbers, one of AARC numbers, one of
-     fleet numbers, one of distribution numbers and, last, the device
-     line.
+     fleet numbers, one of distribution numbers, one of serving-side
+     distribution numbers and, last, the device line.
 """
 from __future__ import annotations
 
@@ -109,6 +124,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -155,7 +171,8 @@ from repro_torch.kernels.ssd_scan.kernel import ssd_inter_cuda, ssd_intra_cuda
 from repro_torch.kernels.ssd_scan.ref import (ssd_inter_scan_ref,
                                               ssd_intra_ref, ssd_scan_ref)
 from repro_torch.launch import train as launch_train
-from repro_torch.launch.steps import build_train_step
+from repro_torch.launch.steps import (build_prefill_step, build_serve_step,
+                                      build_train_step)
 from repro_torch.models.attention import sdpa
 from repro_torch.models import moe
 from repro_torch.models.mamba2 import chunk_recurrence
@@ -278,6 +295,16 @@ DIST_STEPS = 5
 DIST_LOSS_RTOL = 1e-4
 DIST_PARAM_TOL = dict(atol=1e-4, rtol=1e-3)
 SYNC_REPS = 10
+#: distribution, serving side: the prompt batch, its length, the greedy
+#: serve steps after it; each model's kernel launches per prefill (flash,
+#: SSD intra, SSD inter): qwen3's 28 layers; zamba2's 6 shared-block
+#: applications and 38 Mamba2 layers
+SERVE_DIST_BATCH, SERVE_DIST_SEQ, SERVE_DIST_STEPS = 4, 512, 16
+SERVE_DIST_LAUNCHES = {"qwen3-0.6b": (28, 0, 0), "zamba2-1.2b": (6, 38, 38)}
+#: the dry run's cells (qwen3-0.6b on the fake single-pod mesh), and its
+#: subprocess's time limit (s)
+DRYRUN_SHAPES = ("prefill_32k", "decode_32k")
+DRYRUN_TIMEOUT_S = 240
 
 
 def check(ok: bool, what: str) -> None:
@@ -1843,23 +1870,198 @@ def dist_checkpoint(mesh):
                 bit_equal=True)
 
 
-def distribution_on_card(model, state0, batch, train):
-    """Phase 9 on a one-rank NCCL group, met through a store in this
-    process; the group is destroyed at the end."""
+def distribution_on_card(mesh, model, state0, batch, train):
+    """Phase 9 on the one-rank mesh."""
     t0 = time.perf_counter()
-    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
-                            world_size=1)
-    try:
-        mesh = init_device_mesh("cuda", (1, 1),
-                                mesh_dim_names=("data", "model"))
-        result = dict(train_step=dist_train_step(mesh, model, state0, batch,
-                                                 train))
-        result["int8_sync"] = dist_int8_sync(model, state0, batch)
-        result["checkpoint"] = dist_checkpoint(mesh)
-    finally:
-        dist.destroy_process_group()
+    result = dict(train_step=dist_train_step(mesh, model, state0, batch,
+                                             train))
+    result["int8_sync"] = dist_int8_sync(model, state0, batch)
+    result["checkpoint"] = dist_checkpoint(mesh)
     result["phase_wall_s"] = time.perf_counter() - t0
     print(f"distribution on the card took {result['phase_wall_s']:.1f} s")
+    return result
+
+
+# --------------------------------------------------------------------------
+# phase 10: distribution on the card, serving side
+# --------------------------------------------------------------------------
+
+def kernel_counts() -> tuple:
+    return (flash_ops.launches, ssd_ops.intra_launches,
+            ssd_ops.inter_launches)
+
+
+def zero_kernel_counts() -> None:
+    flash_ops.launches = rms_ops.launches = 0
+    ssd_ops.intra_launches = ssd_ops.inter_launches = 0
+
+
+def timed_call(fn):
+    """(fn's result, its time in ms by CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def serve_greedy(prefill, decode):
+    """``prefill()`` then SERVE_DIST_STEPS greedy ``decode(tokens)`` calls:
+    (every call's logits as whole tensors, the greedy tokens, the final
+    cache, the prefill's ms, the decode steps' ms)."""
+    (logits, cache), prefill_ms = timed_call(prefill)
+    outs, tokens, step_ms = [whole(logits)], [], []
+    for _ in range(SERVE_DIST_STEPS):
+        tokens.append(outs[-1][:, -1].argmax(-1)[:, None])
+        (logits, cache), ms = timed_call(lambda: decode(cache, tokens[-1]))
+        outs.append(whole(logits))
+        step_ms.append(ms)
+    return outs, torch.cat(tokens, 1), cache, prefill_ms, step_ms
+
+
+def dist_serve_model(mesh, arch):
+    """The sharded prefill and serve steps of full-size ``arch`` (bf16,
+    kernel routes on) on the one-rank mesh against the unsharded calls
+    on the card, on one seeded 4 x 512 prompt batch."""
+    cfg = get_config(arch, attn_impl="kernel",
+                     use_ssm_kernel=arch == "zamba2-1.2b")
+    model = Model(cfg)
+    params = model.init(seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (SERVE_DIST_BATCH,
+                                                    SERVE_DIST_SEQ),
+                                     generator=gen, device="cuda")}
+    max_len = SERVE_DIST_SEQ + SERVE_DIST_STEPS + 8
+    prefill_plain = lambda: model.prefill(params, batch, max_len=max_len)
+    prefill_plain()                                          # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    want, want_tokens, want_cache, plain_prefill_ms, plain_steps = \
+        serve_greedy(prefill_plain,
+                     lambda c, t: model.decode_step(params, c, t))
+    plain_peak = torch.cuda.max_memory_allocated()
+
+    shape = lambda kind: Shape(kind, max_len, SERVE_DIST_BATCH, kind)
+    pre = build_prefill_step(cfg, shape("prefill"), mesh)
+    serve = build_serve_step(cfg, shape("decode"), mesh)
+    p, b = pre.place(params, batch)
+    pre.step(p, b)                                           # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    place_tokens = lambda t: distribute_tree(t, serve.in_shardings[2])
+
+    def sharded_prefill():
+        # the serve step takes its cache placed by the cache's rules
+        logits, cache = pre.step(p, b)
+        return logits, distribute_tree(cache, serve.in_shardings[1])
+
+    zero_kernel_counts()
+    got, got_tokens, got_cache, prefill_ms, step_ms = serve_greedy(
+        sharded_prefill, lambda c, t: serve.step(p, c, place_tokens(t)))
+    launches = kernel_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == SERVE_DIST_LAUNCHES[arch],
+          f"{arch}: kernel launches (flash, SSD intra, SSD inter) of one "
+          f"sharded prefill and {SERVE_DIST_STEPS} serve steps "
+          f"{launches}, want {SERVE_DIST_LAUNCHES[arch]}")
+    check(torch.equal(got_tokens, want_tokens),
+          f"{arch}: the sharded steps' greedy tokens equal the unsharded "
+          f"calls'")
+    errs = [max_err(a, b, what=f"{arch} sharded logits", **SERVE_TOL)
+            for a, b in zip(got, want)]
+    cache_pairs = list(zip(tree_leaves(got_cache), tree_leaves(want_cache)))
+    errs += [max_err(whole(a), b, what=f"{arch} sharded cache",
+                     **SERVE_TOL) for a, b in cache_pairs]
+    bit_equal = (all(torch.equal(a, b) for a, b in zip(got, want)) and
+                 all(torch.equal(whole(a), b) for a, b in cache_pairs))
+    step_mean = sum(step_ms[1:]) / len(step_ms[1:])
+    plain_step_mean = sum(plain_steps[1:]) / len(plain_steps[1:])
+    print(f"{arch} bf16 kernel routes, {SERVE_DIST_BATCH} x "
+          f"{SERVE_DIST_SEQ} prompt, {SERVE_DIST_STEPS} greedy steps: "
+          f"sharded prefill {prefill_ms:.3f} ms against the unsharded "
+          f"{plain_prefill_ms:.3f} ms; decode step {step_mean:.3f} ms "
+          f"against {plain_step_mean:.3f} ms (CUDA events, mean of steps "
+          f"2-{SERVE_DIST_STEPS}); peak memory {peak / 2**30:.3f} GiB "
+          f"against {plain_peak / 2**30:.3f}; launches (flash, SSD intra, "
+          f"SSD inter) {launches}; logits and caches max abs err "
+          f"{max(errs):.3g}, bit-equal to the unsharded calls: {bit_equal}; "
+          f"greedy tokens equal")
+    kernels = {"flash attention": "flash_fwd", "ssd_intra": "ssd_intra",
+               "ssd_inter": "ssd_inter"}
+    profiles = {}
+    dcache, dtokens = got_cache, place_tokens(got_tokens[:, -1:])
+    for name, fn in (
+            ("sharded prefill", lambda: pre.step(p, b)),
+            ("unsharded prefill", prefill_plain),
+            ("sharded decode step", lambda: serve.step(p, dcache, dtokens)),
+            ("unsharded decode step", lambda: model.decode_step(
+                params, want_cache, want_tokens[:, -1:]))):
+        _, n, wall_ms, device_ms = profile_call(name, fn, kernels, n=1)
+        check(device_ms is not None, f"the profiler saw {arch}'s {name}")
+        profiles[name] = dict(wall_ms=wall_ms, device_busy_ms=device_ms,
+                              idle_share=1 - device_ms / wall_ms,
+                              launches=n)
+    return dict(arch=arch, mesh="data=1 x model=1", batch=SERVE_DIST_BATCH,
+                prompt=SERVE_DIST_SEQ, steps=SERVE_DIST_STEPS,
+                prefill_ms=prefill_ms, plain_prefill_ms=plain_prefill_ms,
+                decode_step_ms=step_mean,
+                plain_decode_step_ms=plain_step_mean,
+                peak_bytes=peak, plain_peak_bytes=plain_peak,
+                kernel_launches=dict(zip(("flash_attention", "ssd_intra",
+                                          "ssd_inter"), launches)),
+                max_abs_err=max(errs), bit_equal_to_unsharded=bit_equal,
+                greedy_tokens_equal=True, profile=profiles)
+
+
+def dryrun_cells():
+    """``run_cell`` of qwen3-0.6b at DRYRUN_SHAPES on the fake (16, 16)
+    mesh, in a subprocess (the fake process group must not meet this
+    process's NCCL group); its per-rank roofline terms."""
+    code = ("import json, sys\n"
+            "from repro_torch.launch.dryrun import run_cell\n"
+            f"for shape in {DRYRUN_SHAPES!r}:\n"
+            "    r = run_cell('qwen3-0.6b', shape, False, None)\n"
+            "    print('DRYRUN ' + json.dumps(r), flush=True)\n")
+    src = str(Path(__file__).resolve().parent / "src")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=DRYRUN_TIMEOUT_S,
+                         env=dict(os.environ, PYTHONPATH=src))
+    check(res.returncode == 0, f"the dry run exited {res.returncode}: "
+                               f"{res.stderr[-2000:]}")
+    cells = [json.loads(line[len("DRYRUN "):])
+             for line in res.stdout.splitlines()
+             if line.startswith("DRYRUN ")]
+    check(len(cells) == len(DRYRUN_SHAPES), "one result per dry-run cell")
+    keys = ("flops_per_chip", "bytes_per_chip", "collective_by_kind",
+            "collective_counts", "compute_s", "memory_s", "collective_s",
+            "dominant", "useful_ratio", "compile_s", "memory_analysis",
+            "flops_source", "collective_constants")
+    out = {}
+    for r in cells:
+        print(f"dry run qwen3-0.6b x {r['shape']} on {r['mesh']} (fake "
+              f"process group, meta tensors, {r['compile_s']:.1f} s): "
+              f"flops/rank {r['flops_per_chip']:.4g}, bytes/rank "
+              f"{r['bytes_per_chip']:.4g}, collectives "
+              f"{r['collective_by_kind']}; terms compute "
+              f"{r['compute_s']:.5f} s, memory {r['memory_s']:.5f} s, "
+              f"collective {r['collective_s']:.5f} s ({r['dominant']}); "
+              f"temp {r['memory_analysis']['temp_size_in_bytes']:,} B")
+        out[r["shape"]] = {k: r[k] for k in keys}
+    return out
+
+
+def distribution_serving(mesh):
+    """Phase 10: both models, then the dry run."""
+    t0 = time.perf_counter()
+    result = {}
+    for arch in SERVE_DIST_LAUNCHES:
+        result[arch] = dist_serve_model(mesh, arch)
+        torch.cuda.empty_cache()
+    result["dryrun"] = dryrun_cells()
+    result["phase_wall_s"] = time.perf_counter() - t0
+    print(f"distribution, serving side, took {result['phase_wall_s']:.1f} s")
     return result
 
 
@@ -2074,16 +2276,37 @@ def main() -> int:
     check(got == (0, 0, 0, 0), f"no kernel launched by the fleet engine, "
                                f"got {got}")
 
-    # distribution trains through the plain paths too: no kernel launches
-    print("distribution on the card:")
-    distribution = distribution_on_card(train_model, train_state0,
-                                        train_batch, train)
-    del train_model, train_state0, train_batch
-    got = (flash_ops.launches, rms_ops.launches, ssd_ops.intra_launches,
-           ssd_ops.inter_launches)
-    check(got == (0, 0, 0, 0), f"no kernel launched by the distribution "
-                               f"phase, got {got}")
+    # phases 9 and 10 on a one-rank NCCL group, met through a store in this
+    # process, and a (data=1, model=1) mesh; the group is destroyed after
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        # distribution trains through the plain paths too: no kernel
+        # launches
+        print("distribution on the card:")
+        distribution = distribution_on_card(mesh, train_model, train_state0,
+                                            train_batch, train)
+        del train_model, train_state0, train_batch
+        got = (flash_ops.launches, rms_ops.launches, ssd_ops.intra_launches,
+               ssd_ops.inter_launches)
+        check(got == (0, 0, 0, 0), f"no kernel launched by the distribution "
+                                   f"phase, got {got}")
+        torch.cuda.empty_cache()
+        # serving through the sharded steps runs the kernels on local
+        # shards: each model's counts are set to 0 and read in its run
+        print("distribution on the card, serving side:")
+        dist_serving = distribution_serving(mesh)
+    finally:
+        dist.destroy_process_group()
 
+    # phase 10's launches, per model: one sharded prefill and its serve
+    # steps
+    sharded_launches = lambda name: {
+        f"{arch} sharded prefill + serve steps":
+            dist_serving[arch]["kernel_launches"][name]
+        for arch in SERVE_DIST_LAUNCHES}
     kernels = [
         dict(name="flash_attention", route="cuda",
              design="mma.sync bf16 + scalar fp32",
@@ -2092,14 +2315,16 @@ def main() -> int:
              replaces="src/repro/kernels/flash_attention/kernel.py:101",
              launches=(flash_launches + hybrid_launches["flash_attention"]
                        + sum(moe_launches.values())
-                       + sum(family_launches.values())),
+                       + sum(family_launches.values())
+                       + sum(sharded_launches("flash_attention").values())),
              launches_by_path={
                  "qwen3-0.6b serving": flash_launches,
                  "zamba2-1.2b serving": hybrid_launches["flash_attention"],
                  **{f"{arch} serving": n
                     for arch, n in moe_launches.items()},
                  **{f"{arch} serving": n
-                    for arch, n in family_launches.items()}}),
+                    for arch, n in family_launches.items()},
+                 **sharded_launches("flash_attention")}),
         dict(name="fused_rmsnorm", route="triton",
              design="a block of rows per program",
              source="src/repro_torch/kernels/rmsnorm/kernel.py",
@@ -2109,13 +2334,21 @@ def main() -> int:
              design="mma.sync bf16 + scalar fp32, chunk cumsum folded in",
              source="src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan/kernel.py:91",
-             launches=hybrid_launches["ssd_intra"]),
+             launches=(hybrid_launches["ssd_intra"]
+                       + sum(sharded_launches("ssd_intra").values())),
+             launches_by_path={
+                 "zamba2-1.2b serving": hybrid_launches["ssd_intra"],
+                 **sharded_launches("ssd_intra")}),
         dict(name="ssd_inter", route="cuda",
              design="mma.sync bf16 + scalar fp32, chunk recurrence "
                     "folded in",
              source="src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan/kernel.py:117",
-             launches=hybrid_launches["ssd_inter"]),
+             launches=(hybrid_launches["ssd_inter"]
+                       + sum(sharded_launches("ssd_inter").values())),
+             launches_by_path={
+                 "zamba2-1.2b serving": hybrid_launches["ssd_inter"],
+                 **sharded_launches("ssd_inter")}),
     ]
     # the rows at each kernel's main-path shape: flash at a full-length
     # qwen3 prompt (b=1 s=512), RMSNorm on 4 x 512 tokens of d=1024 bf16,
@@ -2144,6 +2377,7 @@ def main() -> int:
     print(json.dumps({"aarc": aarc}))
     print(json.dumps({"fleet": fleet}))
     print(json.dumps({"distribution": distribution}))
+    print(json.dumps({"distribution_serving": dist_serving}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -216,10 +216,14 @@ def shard_batch_spec(mesh, rules: ShardingRules, batch: int,
 
 
 def distribute_tree(tree: Tree, shardings: Tree) -> Tree:
-    """Place every full tensor of ``tree`` on its mesh by its Sharding
-    (``distribute_tensor``: every rank passes the same full tensor)."""
+    """Place every tensor of ``tree`` on its mesh by its Sharding: a full
+    tensor by ``distribute_tensor`` (every rank passes the same full
+    tensor), a DTensor (a step's output fed to the next step) by
+    ``redistribute``."""
     from repro_torch.models.transformer import tree_map
-    return tree_map(lambda t, s: distribute_tensor(t, s.mesh, s.placements),
+    return tree_map(lambda t, s: t.redistribute(s.mesh, s.placements)
+                    if isinstance(t, DTensor)
+                    else distribute_tensor(t, s.mesh, s.placements),
                     tree, shardings)
 
 

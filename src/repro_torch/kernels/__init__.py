@@ -13,7 +13,13 @@ plain version only for a tensor on the CPU; for a CUDA tensor it
 launches the kernel or raises. Each ``ops`` module counts its kernels'
 launches (``launches``; ``intra_launches`` and ``inter_launches`` for
 the SSD scan). Nothing is built or imported from Triton
-until a kernel is first launched.
+until a kernel is first launched. A tensor on the meta device (the dry
+run's) takes the plain version too: it has no data, so nothing is hidden.
+
+Every entry point refuses a DTensor: the launch would be handed the
+wrapper, not the local shard, and nothing may gather one silently. On a
+mesh the model calls the entry points inside ``sharding.per_shard``, on
+each rank's local shards.
 
 No kernel has a backward pass (nor has any Pallas kernel of the
 reference), so every ``ops`` entry point refuses a call that autograd
@@ -21,6 +27,7 @@ would record, on either device: a kernel's output carries no
 ``grad_fn``, and the gradient would silently stop at it.
 """
 import torch
+from torch.distributed.tensor import DTensor
 
 #: why a kernel entry point refuses autograd, and what to train with
 NO_BACKWARD = ("the port's kernels have no backward pass (nor do the "
@@ -34,3 +41,17 @@ def refuse_autograd(name: str, *tensors) -> None:
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise ValueError(f"{name}: {NO_BACKWARD}")
+
+
+#: devices whose tensors take a kernel's plain version: the CPU, where no
+#: kernel runs, and the meta device, whose tensors have no data
+PLAIN_DEVICES = ("cpu", "meta")
+
+
+def refuse_dtensor(name: str, *tensors) -> None:
+    """Raise ``ValueError`` if any of ``tensors`` is a DTensor; ``None``
+    entries are skipped."""
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise ValueError(f"{name}: takes plain tensors, not DTensors; on a "
+                         f"mesh call it on each rank's local shards "
+                         f"(repro_torch.distributed.sharding.per_shard)")

@@ -3,7 +3,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import refuse_autograd
+from repro_torch.kernels import (PLAIN_DEVICES, refuse_autograd,
+                                 refuse_dtensor)
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -17,11 +18,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q: (b, sq, h, d); k/v: (b, skv, hkv, d); returns (b, sq, h, d).
     A CUDA tensor goes through the CUDA kernel (or the call raises); a
-    CPU tensor through the plain version. Refuses autograd (no backward).
+    CPU tensor through the plain version, and so does a meta tensor (the
+    dry run's), which has no data, so nothing is hidden. Refuses autograd
+    (no backward) and DTensors (call it on local shards).
     """
     global launches
     refuse_autograd("flash_attention", q, k, v)
-    if q.device.type == "cpu":
+    refuse_dtensor("flash_attention", q, k, v)
+    if q.device.type in PLAIN_DEVICES:
         return attention_ref(q, k, v, causal=causal)
     out = flash_attention_cuda(q, k, v, causal=causal)
     launches += 1

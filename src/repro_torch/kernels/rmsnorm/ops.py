@@ -3,7 +3,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import refuse_autograd
+from repro_torch.kernels import (PLAIN_DEVICES, refuse_autograd,
+                                 refuse_dtensor)
 from repro_torch.kernels.rmsnorm.kernel import fused_rmsnorm_cuda
 from repro_torch.kernels.rmsnorm.ref import fused_rmsnorm_ref
 
@@ -16,11 +17,14 @@ def fused_rmsnorm(x: torch.Tensor, residual: torch.Tensor, w: torch.Tensor,
     """Fused (x + residual) -> RMSNorm. Returns (normed, new_residual).
 
     A CUDA tensor goes through the Triton kernel (or the call raises); a
-    CPU tensor through the plain version. Refuses autograd (no backward).
+    CPU tensor through the plain version, and so does a meta tensor, which
+    has no data, so nothing is hidden. Refuses autograd (no backward) and
+    DTensors (call it on local shards).
     """
     global launches
     refuse_autograd("fused_rmsnorm", x, residual, w)
-    if x.device.type == "cpu":
+    refuse_dtensor("fused_rmsnorm", x, residual, w)
+    if x.device.type in PLAIN_DEVICES:
         return fused_rmsnorm_ref(x, residual, w, eps=eps)
     shape = x.shape
     y, s = fused_rmsnorm_cuda(x.reshape(-1, shape[-1]).contiguous(),

@@ -1,13 +1,19 @@
 """Public SSD scan: intra-chunk pass (which also takes the chunk cumsum)
 -> inter-chunk pass (which also runs the chunk recurrence), the
-counterpart of ``repro.kernels.ssd_scan.ops``."""
+counterpart of ``repro.kernels.ssd_scan.ops``.
+
+Each entry point takes the plain version for a CPU tensor and for a meta
+tensor (the dry run's), which has no data, so nothing is hidden; a CUDA
+tensor launches the kernel or raises. Each refuses autograd (no
+backward) and DTensors (call it on local shards)."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import refuse_autograd
+from repro_torch.kernels import (PLAIN_DEVICES, refuse_autograd,
+                                 refuse_dtensor)
 from repro_torch.kernels.ssd_scan.kernel import ssd_inter_cuda, ssd_intra_cuda
 from repro_torch.kernels.ssd_scan.ref import ssd_inter_scan_ref, ssd_intra_ref
 from repro_torch.models.mamba2 import chunk_len
@@ -25,7 +31,8 @@ def ssd_intra(xh, bm, cm, log_a, dt):
     autograd (no backward)."""
     global intra_launches
     refuse_autograd("ssd_intra", xh, bm, cm, log_a, dt)
-    if xh.device.type == "cpu":
+    refuse_dtensor("ssd_intra", xh, bm, cm, log_a, dt)
+    if xh.device.type in PLAIN_DEVICES:
         cum = torch.cumsum(log_a, dim=2)
         return (*ssd_intra_ref(xh, bm, cm, cum, dt), cum)
     out = ssd_intra_cuda(xh, bm, cm, log_a, dt)
@@ -39,7 +46,8 @@ def ssd_inter(cm, cum, s_chunk, chunk_decay, y_intra, out_dtype, h0=None):
     tensor, ``chunk_recurrence`` and the plain pass. Refuses autograd."""
     global inter_launches
     refuse_autograd("ssd_inter", cm, cum, s_chunk, chunk_decay, y_intra, h0)
-    if cm.device.type == "cpu":
+    refuse_dtensor("ssd_inter", cm, cum, s_chunk, chunk_decay, y_intra, h0)
+    if cm.device.type in PLAIN_DEVICES:
         return ssd_inter_scan_ref(cm, cum, s_chunk, chunk_decay, y_intra,
                                   out_dtype, h0)
     out = ssd_inter_cuda(cm, cum, s_chunk, chunk_decay, y_intra, out_dtype,
@@ -62,6 +70,7 @@ def ssd_scan(xh: torch.Tensor, b_mat: torch.Tensor, c_mat: torch.Tensor,
     autograd (no backward).
     """
     refuse_autograd("ssd_scan", xh, b_mat, c_mat, log_a, dt, h0)
+    refuse_dtensor("ssd_scan", xh, b_mat, c_mat, log_a, dt, h0)
     bsz, s, h, p = xh.shape
     n = b_mat.shape[-1]
     q = chunk_len(s, chunk)

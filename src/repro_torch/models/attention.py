@@ -1,5 +1,5 @@
-"""Multi-head attention: GQA, RoPE, qk-norm, QKV bias (counterpart of
-``repro.models.attention``).
+"""Multi-head attention: GQA, RoPE, qk-norm, QKV bias, KV cache
+(counterpart of ``repro.models.attention``).
 
 Two execution paths selected by ``impl``:
   * ``"plain"``  — torch einsum (the reference's ``"xla"``),
@@ -7,13 +7,15 @@ Two execution paths selected by ``impl``:
     attention (the reference's ``"pallas"``); on CPU tensors the
     kernel's plain version.
 
-Softmax accumulates in fp32.
+On a mesh both paths run on each rank's local (batch, head) shards
+(``sharding.per_shard``). Softmax accumulates in fp32.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models.layers import apply_rope, dense_init, rms_norm
 
@@ -182,8 +184,96 @@ def sdpa(q, k, v, *, causal: bool, impl: str = "plain") -> torch.Tensor:
     if impl not in IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}; one of {IMPLS}")
     if impl == "kernel" and causal:
+        # imported here: repro_torch.distributed imports the training code,
+        # which imports this module
+        from repro_torch.distributed.sharding import per_shard
         from repro_torch.kernels.flash_attention import ops as flash_ops
-        return flash_ops.flash_attention(q, k, v)
+        # on a mesh each rank runs the kernel on its local (batch, head)
+        # shards; contiguous head shards keep GQA's groups whole when both
+        # head counts divide the model axis, and per_shard replicates the
+        # heads where either does not
+        return per_shard(lambda q, k, v: flash_ops.flash_attention(q, k, v),
+                         (q, k, v), (_BSHD, _BSHD, _BSHD), _BSHD)
     if q.shape[1] > CHUNKED_SEQ_THRESHOLD and q.shape[1] == k.shape[1]:
         return _sdpa_plain_chunked(q, k, v, causal=causal)
     return _sdpa_plain(q, k, v, causal=causal)
+
+
+def attention(params, x: torch.Tensor, *, n_heads: int, kv_heads: int,
+              head_dim: int, causal: bool = True,
+              rope_theta: Optional[float] = None,
+              positions: Optional[torch.Tensor] = None,
+              kv_x: Optional[torch.Tensor] = None,
+              impl: str = "plain") -> torch.Tensor:
+    """Full-sequence attention (training / prefill / encoder / cross); a
+    cross attention (``kv_x`` given) takes no rope and plain attention."""
+    b, s, _ = x.shape
+    kv_src = kv_x if kv_x is not None else x
+    if positions is None:
+        positions = torch.arange(s, device=x.device).expand(b, s)
+    kv_positions = (torch.arange(kv_src.shape[1], device=x.device).expand(
+        b, kv_src.shape[1]) if kv_x is not None else positions)
+    q, k, v = _project_qkv(params, x, kv_src, n_heads, kv_heads, head_dim,
+                           positions, kv_positions,
+                           rope_theta if kv_x is None else None)
+    out = sdpa(q, k, v, causal=causal and kv_x is None,
+               impl=impl if kv_x is None else "plain")
+    return out.reshape(b, s, n_heads * head_dim) @ params["wo"]
+
+
+# --------------------------------------------------------------------------
+# KV-cache decode
+# --------------------------------------------------------------------------
+
+def init_kv_cache(batch: int, kv_heads: int, max_len: int, head_dim: int,
+                  dtype, device=None) -> Dict[str, torch.Tensor]:
+    zeros = lambda: torch.zeros((batch, max_len, kv_heads, head_dim),
+                                dtype=dtype, device=device)
+    return {"k": zeros(), "v": zeros(),
+            "length": torch.zeros((batch,), dtype=torch.int32,
+                                  device=device)}
+
+
+def decode_attention(params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                     *, n_heads: int, kv_heads: int, head_dim: int,
+                     rope_theta: Optional[float] = None
+                     ) -> Tuple[torch.Tensor, Dict]:
+    """One-token decode: x (b, 1, d) against cache (b, S, hkv, hd).
+
+    The new K/V is added at position ``length`` as a one-hot row, as in
+    the reference: a new cache is returned and the one passed in is not
+    written (a row at ``length >= S`` adds nothing). Keys beyond
+    ``length`` are masked.
+    """
+    b = x.shape[0]
+    length = cache["length"]
+    positions = length[:, None]                                  # (b, 1)
+    q, k_new, v_new = _project_qkv(params, x, x, n_heads, kv_heads, head_dim,
+                                   positions, positions, rope_theta)
+    max_len = cache["k"].shape[1]
+    slots = torch.arange(max_len, device=x.device)[None, :]
+    onehot = (slots == length[:, None]).to(x.dtype)               # (b, S)
+    k = cache["k"] + onehot[:, :, None, None] * k_new
+    v = cache["v"] + onehot[:, :, None, None] * v_new
+    valid = slots <= length[:, None]                             # (b, S)
+    out = _sdpa_plain(q, k, v, causal=False, kv_len_mask=valid)
+    out = out.reshape(b, 1, n_heads * head_dim) @ params["wo"]
+    return out, {"k": k, "v": v, "length": length + 1}
+
+
+def prefill_into_cache(params, x: torch.Tensor, *, n_heads: int,
+                       kv_heads: int, head_dim: int, max_len: int,
+                       rope_theta: Optional[float] = None,
+                       impl: str = "plain") -> Tuple[torch.Tensor, Dict]:
+    """Causal prefill that also returns the populated KV cache."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    q, k, v = _project_qkv(params, x, x, n_heads, kv_heads, head_dim,
+                           positions, positions, rope_theta)
+    out = sdpa(q, k, v, causal=True, impl=impl)
+    out = out.reshape(b, s, n_heads * head_dim) @ params["wo"]
+    pad = (0, 0, 0, 0, 0, max_len - s)
+    cache = {"k": F.pad(k, pad), "v": F.pad(v, pad),
+             "length": torch.full((b,), s, dtype=torch.int32,
+                                  device=x.device)}
+    return out, cache

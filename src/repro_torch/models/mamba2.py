@@ -202,18 +202,23 @@ def apply_mamba2(params: Tree, x: torch.Tensor, cfg: SSMConfig,
     a = -torch.exp(params["A_log"])                               # (h,)
     log_a = dt * a                                                # (b,s,h)
 
-    xh = xr.reshape(bsz, s, h, p)
+    # on a mesh the scan (either route) runs on the local (batch, head)
+    # shards, the batch pinned over the data axes (the projections' GEMMs
+    # may leave it whole) and the heads over the model axis; B and C carry
+    # no head dim, so they replicate over heads
+    from repro_torch.distributed.sharding import constrain, per_shard
+    xh = constrain(xr.reshape(bsz, s, h, p), ("batch", "act_seq", "inner",
+                                             None))
     if use_kernel:
         from repro_torch.kernels.ssd_scan import ops as ssd_ops
-        y, h_last = ssd_ops.ssd_scan(xh, bm, cm, log_a, dt, chunk=cfg.chunk)
+        scan = lambda *a: ssd_ops.ssd_scan(*a, chunk=cfg.chunk)
     else:
-        # on a mesh the scan runs on the local (batch, head) shards
-        from repro_torch.distributed.sharding import per_shard
-        y, h_last = per_shard(
-            lambda *a: _ssd_chunked(*a, cfg), (xh, bm, cm, log_a, dt),
-            (("b", None, "h", None), ("b", None, None), ("b", None, None),
-             ("b", None, "h"), ("b", None, "h")),
-            (("b", None, "h", None), ("b", "h", None, None)))
+        scan = lambda *a: _ssd_chunked(*a, cfg)
+    y, h_last = per_shard(
+        scan, (xh, bm, cm, log_a, dt),
+        (("b", None, "h", None), ("b", None, None), ("b", None, None),
+         ("b", None, "h"), ("b", None, "h")),
+        (("b", None, "h", None), ("b", "h", None, None)))
     y = y + params["D"].to(y.dtype)[None, None, :, None] * xh
     y = y.reshape(bsz, s, di)
     y = rms_norm(y * F.silu(z).to(y.dtype), params["norm_w"])
@@ -227,11 +232,17 @@ def apply_mamba2_with_state(params: Tree, x: torch.Tensor, cfg: SSMConfig,
     """Prefill entry point: full-seq output + decode-ready cache."""
     out, h_last, xr_pre = apply_mamba2(params, x, cfg, use_kernel=use_kernel,
                                        return_state=True)
+    # imported here: repro_torch.distributed imports the training code,
+    # which imports this module
+    from repro_torch.distributed.sharding import per_shard
     k = cfg.conv_kernel
     conv = xr_pre[:, -(k - 1):, :]
     pad = (k - 1) - conv.shape[1]
     if pad > 0:                                   # prompt shorter than window
-        conv = F.pad(conv, (0, 0, pad, 0))
+        # on local (batch, channel) shards, as the causal conv's pad:
+        # torch 2.11's DTensor cannot pad a DTensor along this dim
+        conv = per_shard(lambda c: F.pad(c, (0, 0, pad, 0)), (conv,),
+                         (("b", None, "c"),), ("b", None, "c"))
     return out, {"h": h_last.to(x.dtype), "conv": conv}
 
 

@@ -580,6 +580,12 @@ class Model:
                 "length": la}
         return {"layers": _stacked(one, cfg.n_layers), "length": length}, axes
 
+    def abstract_cache(self, batch: int, max_len: int) -> Tuple[Tree, Tree]:
+        """(the cache on the meta device, its logical axes): what
+        :meth:`make_cache` makes, with no storage, as the reference's
+        ``eval_shape`` of it."""
+        return Model(self.cfg, device="meta").make_cache(batch, max_len)
+
     def prefill(self, params: Tree, batch: Dict[str, torch.Tensor],
                 max_len: int) -> Tuple[torch.Tensor, Tree]:
         """Process the full prompt; emit last-position logits + cache."""
@@ -751,6 +757,10 @@ class Model:
                                             length, bcfg)
         x = apply_norm(params["final_norm"], x, cfg.norm)
         return self._logits(params, x), out
+
+
+def build_model(cfg: ModelConfig, device: DeviceLike = None) -> Model:
+    return Model(cfg, device=device)
 
 
 def _stacked(one: Tree, n) -> Tree:

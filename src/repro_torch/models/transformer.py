@@ -23,8 +23,11 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 
-from repro_torch.models.attention import (_project_qkv, _sdpa_plain,
+from repro_torch.models.attention import (_BSHD, _project_qkv, _sdpa_plain,
                                           attention_axes,
                                           make_attention_params, sdpa)
 from repro_torch.models.layers import (apply_mlp, apply_norm, make_mlp_params,
@@ -200,7 +203,12 @@ def apply_decoder_block(params: Tree, x: torch.Tensor, cfg: BlockConfig, *,
 def init_block_cache(batch: int, max_len: int, cfg: BlockConfig, dtype,
                      device, quantized: bool = False
                      ) -> Dict[str, torch.Tensor]:
-    shape = (batch, max_len, cfg.kv_heads, cfg.head_dim)
+    return _zero_cache((batch, max_len, cfg.kv_heads, cfg.head_dim), dtype,
+                       device, quantized)
+
+
+def _zero_cache(shape, dtype, device, quantized: bool
+                ) -> Dict[str, torch.Tensor]:
     if quantized:
         # int8 payload + per-(position, head) fp16 scales: about half the
         # bytes decode reads from the cache
@@ -241,16 +249,86 @@ def prefill_decoder_block(params: Tree, x: torch.Tensor, cfg: BlockConfig,
     b, s, _ = x.shape
     x, aux, k, v = _attend_and_ffn(params, x, cfg, True,
                                    _positions(b, s, x.device))
-    cache = init_block_cache(b, max_len, cfg, k.dtype, x.device, quantized)
-    if quantized:
+    return x, aux, _prefill_cache(k, v, max_len, quantized)
+
+
+#: per_shard roles of a cache's K/V and scales: written independently per
+#: (batch, head)
+_SCALE = ("b", None, "h")
+
+
+def _prefill_cache(k: torch.Tensor, v: torch.Tensor, max_len: int,
+                   quantized: bool = False) -> Dict[str, torch.Tensor]:
+    """A prefill's cache: k/v (b, s, hkv, d) written at positions [0, s)
+    of zeros ``max_len`` deep (int8 and fp16 scales if ``quantized``). On
+    a mesh each rank writes its local (batch, head) shards, and the cache
+    comes back placed as k and v are, its sequence whole."""
+    # imported here: repro_torch.distributed imports the training code,
+    # which imports this module
+    from repro_torch.distributed.sharding import per_shard
+
+    def fill(k, v):
+        b, s = k.shape[:2]
+        cache = _zero_cache((b, max_len, *k.shape[2:]), k.dtype, k.device,
+                            quantized)
         for name, t in (("k", k), ("v", v)):
-            q, scale = _quantize_kv(t)
-            cache[name][:, :s] = q
-            cache[f"{name}_scale"][:, :s] = scale
-    else:
-        cache["k"][:, :s] = k
-        cache["v"][:, :s] = v
-    return x, aux, cache
+            if quantized:
+                q, scale = _quantize_kv(t)
+                cache[name][:, :s] = q
+                cache[f"{name}_scale"][:, :s] = scale
+            else:
+                cache[name][:, :s] = t
+        return cache
+
+    roles = {"k": _BSHD, "v": _BSHD}
+    if quantized:
+        roles.update(k_scale=_SCALE, v_scale=_SCALE)
+    return per_shard(fill, (k, v), (_BSHD, _BSHD), roles)
+
+
+def _write_at(buf: torch.Tensor, at: torch.Tensor, new: torch.Tensor
+              ) -> None:
+    """``buf[r, at[r]] = new[r]`` for every row r, in place. buf: (b, S,
+    ...); at: (b,); new: (b, ...).
+
+    On a mesh ``buf`` is a DTensor whose sequence dim may be sharded (the
+    cache's ``cache_seq``): each rank writes its own shard, and only the
+    rows whose ``at`` falls inside its slice of the sequence, so no
+    collective runs beyond placing ``at`` and ``new`` by ``buf``'s rows
+    (an in-place op on a DTensor cannot change its placement). The other
+    rows rewrite the value they hold, so the result is the unsharded
+    write's bit for bit.
+    """
+    if not isinstance(buf, DTensor):
+        buf[torch.arange(buf.shape[0], device=buf.device), at] = new
+        return
+    mesh = buf.device_mesh
+    # new lacks buf's sequence dim; at has only buf's batch dim
+    new_place = [Shard(p.dim - (p.dim > 1))
+                 if isinstance(p, Shard) and p.dim != 1 else Replicate()
+                 for p in buf.placements]
+    at_place = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                for p in buf.placements]
+    local = buf.to_local()
+    _, offset = compute_local_shape_and_global_offset(buf.shape, mesh,
+                                                      buf.placements)
+    pos = _local_as(at, mesh, at_place) - offset[1]
+    new_l = _local_as(new, mesh, new_place).to(local.dtype)
+    mine = (pos >= 0) & (pos < local.shape[1])
+    pos = pos.clamp(0, local.shape[1] - 1)
+    rows = torch.arange(local.shape[0], device=local.device)
+    keep = local[rows, pos]
+    mine = mine.reshape(-1, *(1,) * (new_l.dim() - 1))
+    local[rows, pos] = torch.where(mine, new_l, keep)
+
+
+def _local_as(t: torch.Tensor, mesh, place) -> torch.Tensor:
+    """This rank's shard of ``t`` (a DTensor, or a plain tensor the same on
+    every rank) placed by ``place``."""
+    if not isinstance(t, DTensor):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    return t.redistribute(mesh, place).to_local()
 
 
 def decode_decoder_block(params: Tree, x: torch.Tensor, cache: Dict,
@@ -259,9 +337,10 @@ def decode_decoder_block(params: Tree, x: torch.Tensor, cache: Dict,
     """One-token step. x: (b, 1, d); length: (b,) current cache fill.
 
     The new key and value (int8 and their scales, in a quantized cache)
-    are written into ``cache`` in place at ``length``, where the
-    reference adds a one-hot row: the slot at ``length`` is zero, so both
-    give the same cache. A row already past the end (only an idle slot
+    are written into ``cache`` in place at ``length`` (on a mesh, each
+    rank into its own shard: :func:`_write_at`), where the reference adds
+    a one-hot row: the slot at ``length`` is zero, so both give the same
+    cache. A row already past the end (only an idle slot
     gets there) rewrites its last position, where the reference drops the
     write; no live request reads it. A quantized cache is dequantized
     whole to ``x``'s dtype for the attention, as in the reference. The
@@ -274,18 +353,17 @@ def decode_decoder_block(params: Tree, x: torch.Tensor, cache: Dict,
                                    cfg.kv_heads, cfg.head_dim, positions,
                                    positions, cfg.rope_theta)
     max_len = cache["k"].shape[1]
-    rows = torch.arange(b, device=x.device)
     at = length.clamp(max=max_len - 1)
     if "k_scale" in cache:
         for name, new in (("k", k_new), ("v", v_new)):
             q_new, s_new = _quantize_kv(new)
-            cache[name][rows, at] = q_new[:, 0]
-            cache[f"{name}_scale"][rows, at] = s_new[:, 0]
+            _write_at(cache[name], at, q_new[:, 0])
+            _write_at(cache[f"{name}_scale"], at, s_new[:, 0])
         k = _dequantize_kv(cache["k"], cache["k_scale"], x.dtype)
         v = _dequantize_kv(cache["v"], cache["v_scale"], x.dtype)
     else:
-        cache["k"][rows, at] = k_new[:, 0]
-        cache["v"][rows, at] = v_new[:, 0]
+        _write_at(cache["k"], at, k_new[:, 0])
+        _write_at(cache["v"], at, v_new[:, 0])
         k, v = cache["k"], cache["v"]
     valid = torch.arange(max_len, device=x.device)[None, :] <= length[:, None]
     o = _sdpa_plain(q, k, v, causal=False, kv_len_mask=valid)
@@ -420,11 +498,8 @@ def prefill_cross_block(params: Tree, x: torch.Tensor, kv_x: torch.Tensor,
     """A whisper decoder layer's prefill (``Model._prefill_cross`` in the
     reference): the full-sequence block that also returns its cache, the
     causal self K/V padded to ``max_len`` and the source's K/V."""
-    b, s, _ = x.shape
     x, k, v = _self_attend(params, x, cfg)
-    cache = init_block_cache(b, max_len, cfg, k.dtype, x.device)
-    cache["k"][:, :s] = k
-    cache["v"][:, :s] = v
+    cache = _prefill_cache(k, v, max_len)
     cache["xk"], cache["xv"] = cross_source_kv(params["cross_attn"], kv_x,
                                                cfg)
     c = _cross_attend(params["cross_attn"],
@@ -447,10 +522,9 @@ def decode_cross_block(params: Tree, x: torch.Tensor, cache: Dict,
                                        cfg.head_dim, positions, positions,
                                        cfg.rope_theta)
         max_len = cache["k"].shape[1]
-        rows = torch.arange(b, device=x.device)
         at = length.clamp(max=max_len - 1)
-        cache["k"][rows, at] = k_new[:, 0]
-        cache["v"][rows, at] = v_new[:, 0]
+        _write_at(cache["k"], at, k_new[:, 0])
+        _write_at(cache["v"], at, v_new[:, 0])
         valid = (torch.arange(max_len, device=x.device)[None, :]
                  <= length[:, None])
         o = _sdpa_plain(q, cache["k"], cache["v"], causal=False,

@@ -236,10 +236,16 @@ def apply_mlstm_with_state(params: Tree, x: torch.Tensor, cfg: XLSTMConfig
                            ) -> Tuple[torch.Tensor, Tree]:
     """Prefill entry point: full-sequence output + decode-ready cache
     (the last ``conv_kernel - 1`` conv inputs, zero-padded on the left)."""
+    # imported here: repro_torch.distributed imports the training code,
+    # which imports this module
+    from repro_torch.distributed.sharding import per_shard
     out, state, xm = apply_mlstm(params, x, cfg, return_state=True)
     k = cfg.conv_kernel
     conv = xm[:, -(k - 1):, :]
-    conv = F.pad(conv, (0, 0, (k - 1) - conv.shape[1], 0))
+    # on local (batch, channel) shards: torch 2.11's DTensor fails on the
+    # pad (an IndexError), even a pad of 0
+    conv = per_shard(lambda c: F.pad(c, (0, 0, (k - 1) - c.shape[1], 0)),
+                     (conv,), (("b", None, "c"),), ("b", None, "c"))
     return out, {"C": state["C"], "n": state["n"], "m": state["m"],
                  "conv": conv}
 

@@ -549,3 +549,74 @@ def test_sharded_train_step_on_a_one_rank_nccl_mesh(cuda):
                                        rtol=1e-3)
     finally:
         dist.destroy_process_group()
+
+
+# --------------------------------------------------------------------------
+# distribution, serving side: the kernel routes on local shards
+# --------------------------------------------------------------------------
+
+@pytest.fixture
+def one_rank_mesh(cuda):
+    """A (data=1, model=1) mesh of a one-rank NCCL group, destroyed
+    after the test."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield init_device_mesh("cuda", (1, 1),
+                               mesh_dim_names=("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _on_mesh(t, mesh):
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    return distribute_tensor(t, mesh, [Replicate(), Replicate()])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_route_on_a_local_shard_is_the_unsharded_launch(
+        one_rank_mesh, dtype):
+    """sdpa's kernel route on DTensors runs the kernel once, through
+    per_shard on the local shards, and gives the unsharded launch's
+    output bit for bit."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.models.attention import sdpa
+    rng = np.random.default_rng(0)
+    q = _normal(rng, (2, 512, 16, 128), dtype, "cuda")
+    k = _normal(rng, (2, 512, 8, 128), dtype, "cuda")
+    v = _normal(rng, (2, 512, 8, 128), dtype, "cuda")
+    want = flash_ops.flash_attention(q, k, v)
+    before = flash_ops.launches
+    got = sdpa(*(_on_mesh(t, one_rank_mesh) for t in (q, k, v)),
+               causal=True, impl="kernel")
+    torch.cuda.synchronize()
+    assert flash_ops.launches == before + 1
+    assert isinstance(got, DTensor)
+    assert torch.equal(got.full_tensor(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_route_on_a_local_shard_is_the_unsharded_launch(
+        one_rank_mesh, dtype):
+    """A Mamba2 block's kernel route (zamba2's head shape, 2 x 256
+    tokens) on DTensor params and input runs each SSD pass once, through
+    per_shard on the local shards, and gives the unsharded call's output
+    bit for bit."""
+    from repro_torch.models import mamba2 as m2
+    cfg = m2.SSMConfig(state=64, head_dim=64, expand=2, conv_kernel=4,
+                       chunk=128)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = m2.make_mamba2_params(gen, 512, cfg, dtype, torch.device("cuda"))
+    x = torch.randn((2, 256, 512), generator=gen, device="cuda").to(dtype)
+    with torch.no_grad():
+        want = m2.apply_mamba2(params, x, cfg, use_kernel=True)
+        before = (ssd_ops.intra_launches, ssd_ops.inter_launches)
+        got = m2.apply_mamba2(
+            {k: _on_mesh(t, one_rank_mesh) for k, t in params.items()},
+            _on_mesh(x, one_rank_mesh), cfg, use_kernel=True)
+        torch.cuda.synchronize()
+    assert (ssd_ops.intra_launches, ssd_ops.inter_launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert torch.equal(got.full_tensor(), want)

@@ -281,11 +281,13 @@ def test_build_train_step_inputs_on_a_fake_mesh():
 
 @pytest.mark.parametrize("kind", ["prefill", "decode"])
 def test_build_step_refuses_serving_steps(kind):
+    """The serving steps are built now (tests/test_torch_serve_steps.py
+    runs them); build_step refuses only a kind it does not know."""
     cfg = reduced_config("qwen3-0.6b")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.2"):
-        build_step(cfg, Shape("s", 64, 2, kind), FakeMesh(data=2))
-    bundle = build_step(cfg, Shape("s", 64, 2, "train"), FakeMesh(data=2))
-    assert bundle.kind == "train"
+    with pytest.raises(ValueError, match="unknown step kind"):
+        build_step(cfg, Shape("s", 64, 2, kind + "_x"), FakeMesh(data=2))
+    bundle = build_step(cfg, Shape("s", 64, 2, kind), FakeMesh(data=2))
+    assert bundle.kind == kind
 
 
 #: the rank code that runs build_train_step's step from seed-0 weights on
