@@ -113,10 +113,29 @@ Phases, in order; any failure exits non-zero:
      the dry run (``repro_torch.launch.dryrun.run_cell``) of qwen3-0.6b at
      prefill_32k and decode_32k on a fake (16, 16) mesh of 256 ranks, in a
      subprocess, with its per-rank roofline terms;
- 11. one JSON line of serving numbers (memory, int8), one of training
+ 11. campaigns on the card (no kernel of the port may launch): the
+     portfolio of ``benchmarks/campaign_scale.py::campaign_case`` (12
+     generated workflows of 8 nodes x slacks 1.5 and 2.5 x aarc, bo and
+     maff: 72 cells, seed 0) through ``Campaign.run``, replayed on the
+     default infinite cluster (24 Poisson instances at 0.2/s), so that
+     every replay sweeps once on the card: once on the lockstep grid
+     search plane and once on the sequential one, every cell's trace and
+     result equal bit for bit between them, the card's replay metrics
+     equal to the same replays swept on the CPU; each plane's search and
+     replay wall time, the grid's rounds, fused evaluations and
+     serialized cells, the sweeps' share of the replays, the summary per
+     searcher; the same spec on ``campaign_case``'s finite cluster (120
+     vCPU / 122,880 MB; its replays take the constrained plane on the
+     host); then ``run_adaptive`` on the same portfolio with 4 grants per
+     round in cost-polish mode (``explore_attained``: on an infinite
+     cluster every cell attains its SLO when seeded, so without it no
+     round runs), its payload equal to the same run swept on the CPU, its
+     budget ledger balanced;
+ 12. one JSON line of serving numbers (memory, int8), one of training
      numbers, one of per-kernel numbers, one of AARC numbers, one of
      fleet numbers, one of distribution numbers, one of serving-side
-     distribution numbers and, last, the device line.
+     distribution numbers, one of campaign numbers and, last, the device
+     line.
 """
 from __future__ import annotations
 
@@ -144,8 +163,12 @@ from torch.distributed.tensor import DTensor
 from repro_torch.autotune import plan
 from repro_torch.configs import SHAPES, get_config, reduced_config
 from repro_torch.configs.shapes import Shape
-from repro_torch.core import (Environment, GraphCentricScheduler,
-                              ResourceConfig)
+from repro_torch.core import (AdaptiveSpec, Campaign, CampaignSpec,
+                              Environment, GraphCentricScheduler,
+                              PortfolioSpec, ReplaySpec, ResourceConfig,
+                              run_adaptive)
+from repro_torch.core import adaptive as adaptive_mod
+from repro_torch.core import campaign as campaign_mod
 from repro_torch.core import engine as fleet_engine
 from repro_torch.core.engine import (ClusterModel, ColdStartModel,
                                      FleetEngine, PoissonArrivals,
@@ -305,6 +328,18 @@ SERVE_DIST_LAUNCHES = {"qwen3-0.6b": (28, 0, 0), "zamba2-1.2b": (6, 38, 38)}
 #: subprocess's time limit (s)
 DRYRUN_SHAPES = ("prefill_32k", "decode_32k")
 DRYRUN_TIMEOUT_S = 240
+#: campaigns on the card: benchmarks/campaign_scale.py::campaign_case's
+#: portfolio, searchers and budgets, replayed on the default infinite
+#: cluster, and its finite cluster; the adaptive run's grants per round
+CAMPAIGN_PORTFOLIO = PortfolioSpec(n_workflows=12, size=8,
+                                   slo_slacks=(1.5, 2.5))
+CAMPAIGN_SEARCHERS = ("aarc", "bo", "maff")
+CAMPAIGN_KWARGS = {"aarc": {"batch_size": 4},
+                   "bo": {"n_rounds": 40, "batch_size": 8}}
+CAMPAIGN_REPLAY = dict(n_instances=24, rate=0.2)
+CAMPAIGN_CLUSTER = ClusterModel(total_cpu=120.0, total_mem_mb=122880.0)
+CAMPAIGN_CELLS = 72
+ADAPTIVE_GRANTS = 4
 
 
 def check(ok: bool, what: str) -> None:
@@ -2065,6 +2100,256 @@ def distribution_serving(mesh):
     return result
 
 
+# --------------------------------------------------------------------------
+# phase 11: campaigns on the card
+# --------------------------------------------------------------------------
+
+def campaign_spec(cluster=None) -> CampaignSpec:
+    replay = dict(CAMPAIGN_REPLAY)
+    if cluster is not None:
+        replay["cluster"] = cluster
+    return CampaignSpec(portfolio=CAMPAIGN_PORTFOLIO,
+                        replay=ReplaySpec(**replay),
+                        searchers=CAMPAIGN_SEARCHERS,
+                        searcher_kwargs=CAMPAIGN_KWARGS, seed=0)
+
+
+def search_view(res) -> tuple:
+    """A search result as plain values: every field but the wall clock
+    and the continuation, and its trace sample by sample."""
+    return (res.searcher, res.workflow, res.slo, res.e2e_runtime, res.cost,
+            res.feasible, res.n_samples, res.search_time, res.search_cost,
+            res.note, {n: (c.cpu, c.mem) for n, c in res.configs.items()},
+            None if res.best is None else dataclasses.astuple(res.best),
+            [dataclasses.astuple(x) for x in res.trace.samples])
+
+
+@contextlib.contextmanager
+def captured_grids(module, out: list):
+    """Wrap ``module``'s ``run_grid_search`` so that each ``GridReport``
+    it returns is appended to ``out``."""
+    real = module.run_grid_search
+
+    def grid(*args, **kw):
+        report = real(*args, **kw)
+        out.append(report)
+        return report
+
+    module.run_grid_search = grid
+    try:
+        yield
+    finally:
+        module.run_grid_search = real
+
+
+def timed_campaign(spec, plane: str):
+    """``Campaign.run`` on the card: (the campaign, its report, its
+    numbers). The replays are timed one by one (perf_counter), and each
+    sweep inside them (CUDA events and perf_counter)."""
+    campaign = Campaign(spec)
+    replay_ms = []
+    real_replay = campaign.replay
+
+    def replay(*args, **kw):
+        t0 = time.perf_counter()
+        out = real_replay(*args, **kw)
+        replay_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    campaign.replay = replay
+    sweeps, grids = [], []
+    with timed_sweeps(sweeps), captured_grids(campaign_mod, grids):
+        t0 = time.perf_counter()
+        report = campaign.run(search_plane=plane)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    check(len(report.results) == CAMPAIGN_CELLS,
+          f"{plane}: {len(report.results)} cells")
+    numbers = dict(wall_ms=wall_ms, search_ms=wall_ms - sum(replay_ms),
+                   replays=len(replay_ms), replay_ms=sum(replay_ms),
+                   sweeps=len(sweeps),
+                   sweep_cuda_event_ms=sum(e for e, _ in sweeps),
+                   sweep_wall_ms=sum(w for _, w in sweeps))
+    numbers["sweep_share"] = numbers["sweep_wall_ms"] / numbers["replay_ms"]
+    if grids:
+        (grid,) = grids
+        numbers.update(grid_wall_ms=grid.wall_time_s * 1e3,
+                       rounds=grid.rounds,
+                       fused_evaluations=grid.fused_evaluations,
+                       serialized_cells=grid.serialized_cells)
+    return campaign, report, numbers
+
+
+def campaign_summary(report) -> dict:
+    keys = ("total_search_time_s", "search_time_reduction_vs_worst",
+            "total_search_cost", "total_samples", "feasible_rate",
+            "mean_slo_attainment", "mean_replay_cost")
+    return {name: {k: agg[k] for k in keys}
+            for name, agg in report.summary().items()}
+
+
+def print_campaign(tag, numbers, summary):
+    print(f"  {tag}: wall {numbers['wall_ms']:.1f} ms (search "
+          f"{numbers['search_ms']:.1f} ms, {numbers['replays']} replays "
+          f"{numbers['replay_ms']:.1f} ms; {numbers['sweeps']} card sweeps "
+          f"{numbers['sweep_cuda_event_ms']:.3f} ms by CUDA events, "
+          f"{numbers['sweep_wall_ms']:.3f} ms by perf_counter, "
+          f"{numbers['sweep_share']:.4f} of the replays)")
+    if "rounds" in numbers:
+        print(f"    grid: {numbers['grid_wall_ms']:.1f} ms, "
+              f"{numbers['rounds']} rounds, {numbers['fused_evaluations']} "
+              f"fused evaluations, {numbers['serialized_cells']} serialized "
+              f"cells")
+    for name, agg in summary.items():
+        print(f"    {name}: search time {agg['total_search_time_s']:.1f} s "
+              f"({agg['search_time_reduction_vs_worst']:.4f} under the "
+              f"slowest), search cost {agg['total_search_cost']:.1f}, "
+              f"{agg['total_samples']} samples, feasible "
+              f"{agg['feasible_rate']:.3f}, attainment "
+              f"{agg['mean_slo_attainment']:.3f}, replay cost "
+              f"{agg['mean_replay_cost']:.2f}")
+
+
+def uniform_campaigns():
+    """The 72-cell campaign on both search planes, its replays against
+    the CPU's, then the same spec on the finite cluster."""
+    spec = campaign_spec()
+    result, reports = {}, {}
+    for plane in ("grid", "sequential"):
+        campaign, reports[plane], numbers = timed_campaign(spec, plane)
+        check(numbers["sweeps"] == numbers["replays"] == CAMPAIGN_CELLS,
+              f"{plane}: one card sweep per replay, got {numbers['sweeps']} "
+              f"sweeps for {numbers['replays']} replays")
+        check(campaign._engine.device is None
+              and campaign._engine.plane_backend == "torch",
+              f"{plane}: the replay engine sweeps on the card")
+        result[plane] = numbers
+    check(result["grid"]["serialized_cells"] == 0
+          and result["grid"]["fused_evaluations"] > 0,
+          "every cell joined the lockstep plane, and rounds were fused")
+    grid, seq = reports["grid"], reports["sequential"]
+    same = sum(search_view(a.search) == search_view(b.search)
+               and a.replay == b.replay and a.task.index == b.task.index
+               for a, b in zip(grid.results, seq.results))
+    check(same == CAMPAIGN_CELLS, f"the grid plane equals the sequential "
+                                  f"plane in {same} of {CAMPAIGN_CELLS} "
+                                  f"cells")
+    # the card's replays against the same replays swept on the CPU
+    cpu = Campaign(spec, device="cpu")
+    seeds = cpu.arrival_seeds(len(cpu.tasks()))
+    cpu_replay_ms, cpu_same = 0.0, 0
+    for r in grid.results:
+        t0 = time.perf_counter()
+        m = cpu.replay(r.task, r.search, seeds[r.task.index])
+        cpu_replay_ms += (time.perf_counter() - t0) * 1e3
+        cpu_same += m == r.replay
+    check(cpu_same == CAMPAIGN_CELLS, f"the card's replays equal the CPU's "
+                                      f"in {cpu_same} of {CAMPAIGN_CELLS}")
+    for r in grid.results:
+        m = r.replay
+        check(all(np.isfinite([m.p50_s, m.p99_s, m.total_cost]))
+              and 0.0 <= m.slo_attainment <= 1.0 and m.p99_s >= m.p50_s
+              and m.total_cost > 0.0, f"cell {r.task.index}: replay {m}")
+        # infinite cluster, no cold start: a feasible search's latency is
+        # every instance's latency
+        check(not r.search.feasible or m.slo_attainment == 1.0,
+              f"cell {r.task.index}: a feasible search attains its SLO")
+    summary = campaign_summary(grid)
+    check(summary["aarc"]["total_search_time_s"]
+          < summary["maff"]["total_search_time_s"],
+          "AARC's modeled search time beats MAFF's")
+    result.update(cells=CAMPAIGN_CELLS, planes_equal=same,
+                  card_equals_cpu=cpu_same, cpu_replay_ms=cpu_replay_ms,
+                  summary=summary,
+                  totals=grid.totals())
+    print_campaign("grid plane", result["grid"], summary)
+    print_campaign("sequential plane", result["sequential"],
+                   campaign_summary(seq))
+    print(f"  {same} of {CAMPAIGN_CELLS} cells equal between the planes "
+          f"(traces, results, replays); {cpu_same} card replays equal to "
+          f"the CPU's; the replays {result['grid']['replay_ms']:.1f} ms "
+          f"swept on the card, {cpu_replay_ms:.1f} ms on the CPU")
+
+    finite_spec = campaign_spec(CAMPAIGN_CLUSTER)
+    campaign, finite, numbers = timed_campaign(finite_spec, "grid")
+    first = finite.results[0]
+    plane = campaign._engine.batch_eligibility(
+        first.task.template, [first.search.configs])["plane"]
+    check(numbers["sweeps"] == 0, f"the finite cluster's replays swept "
+                                  f"{numbers['sweeps']} times on the card")
+    check(all(search_view(a.search) == search_view(b.search)
+              for a, b in zip(finite.results, grid.results)),
+          "the finite cluster's searches equal the uniform campaign's")
+    result["finite"] = dict(numbers, plane=plane,
+                            summary=campaign_summary(finite),
+                            totals=finite.totals())
+    print_campaign(f"finite cluster ({CAMPAIGN_CLUSTER.total_cpu:.0f} vCPU "
+                   f"/ {CAMPAIGN_CLUSTER.total_mem_mb:.0f} MB; replays on "
+                   f"the {plane} plane, on the host)", numbers,
+                   result["finite"]["summary"])
+    return result
+
+
+def adaptive_campaign():
+    """``run_adaptive`` on the same portfolio, ADAPTIVE_GRANTS grants per
+    round through the grid runner, its payload against the CPU's."""
+    spec = AdaptiveSpec(portfolio=CAMPAIGN_PORTFOLIO,
+                        replay=ReplaySpec(**CAMPAIGN_REPLAY),
+                        searchers=CAMPAIGN_SEARCHERS, seed=0,
+                        grants_per_round=ADAPTIVE_GRANTS,
+                        explore_attained=True)
+    sweeps, grids = [], []
+    with timed_sweeps(sweeps), captured_grids(adaptive_mod, grids):
+        t0 = time.perf_counter()
+        report = run_adaptive(spec)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    payload = report.to_payload()
+    t0 = time.perf_counter()
+    cpu = run_adaptive(spec, device="cpu").to_payload()
+    cpu_wall_ms = (time.perf_counter() - t0) * 1e3
+    check(payload == cpu, "the adaptive payload equals the CPU's")
+    b = payload["budget"]
+    check(b["total"] == b["spent"] + b["remaining"]
+          and b["spent"] == sum(c.spent for c in report.cells)
+          and b["spent"] <= b["total"], f"the budget ledger balances: {b}")
+    # a round of one grant resumes that cell alone, without the grid
+    check(0 < len(grids) <= payload["rounds"]
+          and all(g.serialized_cells == 0 for g in grids),
+          f"{payload['rounds']} rounds, {len(grids)} through the grid")
+    check(len(sweeps) >= CAMPAIGN_CELLS, f"{len(sweeps)} card sweeps: every "
+                                         f"seeded cell settles on the card")
+    grants = sum(c.grants for c in report.cells)
+    result = dict(rounds=payload["rounds"], grants=grants,
+                  budget=b, attainment=payload["portfolio_attainment"],
+                  mean_replay_cost=payload["mean_replay_cost"],
+                  wall_ms=wall_ms, cpu_wall_ms=cpu_wall_ms,
+                  sweeps=len(sweeps),
+                  sweep_cuda_event_ms=sum(e for e, _ in sweeps),
+                  sweep_wall_ms=sum(w for _, w in sweeps),
+                  grid_wall_ms=sum(g.wall_time_s for g in grids) * 1e3,
+                  fused_evaluations=sum(g.fused_evaluations for g in grids),
+                  payload_equals_cpu=True)
+    print(f"  adaptive ({ADAPTIVE_GRANTS} grants per round, cost-polish): "
+          f"{result['rounds']} rounds, {grants} grants, spent {b['spent']} "
+          f"of {b['total']}; attainment {result['attainment']:.3f}, mean "
+          f"replay cost {result['mean_replay_cost']:.2f}; wall "
+          f"{wall_ms:.1f} ms on the card ({cpu_wall_ms:.1f} ms swept on the "
+          f"CPU), {len(sweeps)} card sweeps {result['sweep_wall_ms']:.3f} ms "
+          f"by perf_counter, grids {result['grid_wall_ms']:.1f} ms with "
+          f"{result['fused_evaluations']} fused evaluations; payload equal "
+          f"to the CPU's")
+    return result
+
+
+def campaigns_on_card():
+    """Phase 11: the uniform campaigns, then the adaptive one."""
+    t0 = time.perf_counter()
+    result = uniform_campaigns()
+    result["adaptive"] = adaptive_campaign()
+    result["phase_wall_s"] = time.perf_counter() - t0
+    print(f"campaigns on the card took {result['phase_wall_s']:.1f} s")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2301,6 +2586,15 @@ def main() -> int:
     finally:
         dist.destroy_process_group()
 
+    # campaigns replay through the engine's sweep and launch no kernel
+    zero_kernel_counts()
+    print("campaigns on the card:")
+    campaign = campaigns_on_card()
+    got = (flash_ops.launches, rms_ops.launches, ssd_ops.intra_launches,
+           ssd_ops.inter_launches)
+    check(got == (0, 0, 0, 0), f"no kernel launched by the campaigns, got "
+                               f"{got}")
+
     # phase 10's launches, per model: one sharded prefill and its serve
     # steps
     sharded_launches = lambda name: {
@@ -2378,6 +2672,7 @@ def main() -> int:
     print(json.dumps({"fleet": fleet}))
     print(json.dumps({"distribution": distribution}))
     print(json.dumps({"distribution_serving": dist_serving}))
+    print(json.dumps({"campaign": campaign}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

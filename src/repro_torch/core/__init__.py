@@ -14,11 +14,19 @@ concurrent workflow instances on a finite-capacity cluster, its
 contention-free replay plane swept on the CUDA card by default) share
 one backend protocol — the single-workflow search path is the engine's
 degenerate case (fleet of 1, infinite capacity, zero cold start).
-Not yet ported: the reference's autoscale, campaign, adaptive and
-online modules.
+Portfolio campaigns (:mod:`repro_torch.core.campaign`) and adaptive
+budget campaigns (:mod:`repro_torch.core.adaptive`) search every cell
+through the lockstep grid runner (:mod:`repro_torch.core.gridsearch`,
+whose ``run_grid_search`` is exported here too) and replay what they
+found through the engine, on the card by default. Not yet ported: the
+reference's autoscale and online modules.
 """
 from repro_torch.core.backend import (BaseBackend, CallableBackend,
                                       RuntimeBackend, as_backend)
+from repro_torch.core.campaign import (Campaign, CampaignReport,
+                                       CampaignSpec, CampaignTask,
+                                       PortfolioSpec, ReplayMetrics,
+                                       ReplaySpec, TaskResult, run_campaign)
 from repro_torch.core.cost import DEFAULT_PRICING, PricingModel, workflow_cost
 from repro_torch.core.critical_path import (SubPath, find_critical_path,
                                             find_detour_subpath, runtime_sum)
@@ -41,6 +49,10 @@ from repro_torch.core.scheduler import (GraphCentricScheduler,
 from repro_torch.core.search import (AARCSearcher, BOSearcher, MAFFSearcher,
                                      ResumeState, SEARCHERS, SearchResult,
                                      Searcher, make_searcher, retune_state)
+from repro_torch.core.gridsearch import run_grid_search
+from repro_torch.core.adaptive import (AdaptiveCampaign, AdaptiveReport,
+                                       AdaptiveSpec, GrantScorer,
+                                       run_adaptive)
 
 __all__ = [
     "BaseBackend", "CallableBackend", "RuntimeBackend", "as_backend",
@@ -60,4 +72,10 @@ __all__ = [
     "AARCSearcher", "BOSearcher", "MAFFSearcher", "ResumeState",
     "SEARCHERS", "SearchResult", "Searcher", "make_searcher",
     "retune_state",
+    "run_grid_search",
+    "Campaign", "CampaignReport", "CampaignSpec", "CampaignTask",
+    "PortfolioSpec", "ReplayMetrics", "ReplaySpec", "TaskResult",
+    "run_campaign",
+    "AdaptiveCampaign", "AdaptiveReport", "AdaptiveSpec", "GrantScorer",
+    "run_adaptive",
 ]

@@ -21,9 +21,7 @@ and the H100 stage-roofline model — implements one interface,
 which is wrapped in :class:`CallableBackend`), so the AARC scheduler,
 the BO/MAFF baselines and the fleet engine are backend-agnostic.
 
-The port's copy of ``src/repro/core/backend.py`` (lines 36-180). Left
-out: ``grid_fusion_key``, which only the reference's lockstep grid
-runner reads; that runner is not ported.
+The port's copy of ``src/repro/core/backend.py`` (lines 36-180).
 """
 from __future__ import annotations
 
@@ -101,6 +99,28 @@ class BaseBackend:
         against this backend? Deterministic backends qualify; stateful
         ones must override (and honor the replay-stream contract)."""
         return self.deterministic
+
+    def grid_fusion_key(self) -> Optional[tuple]:
+        """Lockstep grid-search fusion contract (see
+        :mod:`repro_torch.core.gridsearch`).
+
+        Backends whose batch evaluation is a pure *surface* — identical
+        results whether nodes are evaluated per-cell or concatenated
+        across cells — may return a hashable key here; cells whose
+        backends return equal keys have their per-round probe batches
+        fused into one evaluation. A fused backend must also provide
+
+          * ``surface_tables(nodes)``  — per-node surface constants,
+          * ``surface_probe(cpu, mem, tables)`` — noise-free runtimes +
+            failure flags, advancing NO rng/counter state,
+          * ``apply_invocation_noise(rt, ok)`` — the per-call noise the
+            sequential path would have applied, advancing this
+            backend's own stream exactly once per call.
+
+        ``None`` (the default) means requests are served through this
+        backend one cell at a time — always correct, never fused.
+        """
+        return None
 
     def invoke(self, node: Node) -> float:  # pragma: no cover - abstract
         raise NotImplementedError

@@ -41,9 +41,6 @@ route candidate evaluation through the vectorized paths
 rounds).
 
 The port's copy of ``src/repro/core/search.py``. Not yet copied: the
-re-exports of the lockstep grid plane (``run_grid_search``,
-``grid_eligibility``, ``GridCell``, ``GridResume``, ``GridReport``,
-``CellEligibility``), which wait until that runner is ported, and the
 ``autoscale`` searcher that :func:`make_searcher` imports beside
 ``faults``'s in the reference.
 """
@@ -61,7 +58,9 @@ from repro_torch.core.cost import workflow_cost
 from repro_torch.core.critical_path import find_critical_path
 from repro_torch.core.dag import Workflow
 from repro_torch.core.env import Environment, Sample, SearchTrace
-from repro_torch.core.gridsearch import GridPlan, drive_plan
+from repro_torch.core.gridsearch import (CellEligibility, GridCell, GridPlan,
+                                         GridReport, GridResume, drive_plan,
+                                         grid_eligibility, run_grid_search)
 from repro_torch.core.priority import (FUNC_TRIAL, INITIAL_STEP, MAX_TRAIL,
                                  priority_plan)
 from repro_torch.core.resources import BASE_CONFIG, ResourceConfig
@@ -70,6 +69,9 @@ from repro_torch.core.scheduler import GraphCentricScheduler
 __all__ = [
     "SearchResult", "ResumeState", "Searcher", "AARCSearcher", "BOSearcher",
     "MAFFSearcher", "SEARCHERS", "make_searcher", "retune_state",
+    # re-exported lockstep grid plane (implemented in core.gridsearch)
+    "run_grid_search", "grid_eligibility", "GridCell", "GridResume",
+    "GridReport", "CellEligibility",
 ]
 
 

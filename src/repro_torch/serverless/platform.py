@@ -23,11 +23,13 @@ The port's copy of ``src/repro/serverless/platform.py``:
 ``replay_noise``; lines 34-177), ``StochasticBackend`` (lines 241-321),
 ``SimulatedPlatform``, ``make_env`` and ``make_scaled_env`` (lines
 323-366), and :class:`TorchMeasuredOracle` as the counterpart of
-``JaxMeasuredOracle`` (lines 369-392). Left out: the fused-grid contract
-(``grid_fusion_key``, ``surface_*``, ``apply_invocation_noise``), which
-only the reference's lockstep grid runner calls, and the invocation
-counters and ``SimulatedPlatform``'s oracle views, which no caller of
-the port reads.
+``JaxMeasuredOracle`` (lines 369-392). ``AnalyticBackend`` carries the
+reference's ``invocations`` counter and its fused-grid contract
+(``grid_fusion_key``, ``surface_tables``, ``surface_probe``,
+``surface_floor``, ``apply_invocation_noise``; lines 183-239), which the
+lockstep grid runner (:mod:`repro_torch.core.gridsearch`) reads;
+``SimulatedPlatform`` has the reference's ``invocations``, ``oracle``
+and ``clamped_oracle`` views.
 """
 from __future__ import annotations
 
@@ -50,6 +52,7 @@ class AnalyticBackend(BaseBackend):
 
     def __init__(self, *, input_scale: float = 1.0):
         self.input_scale = input_scale
+        self.invocations = 0
         #: id(node) -> (node, spec-constant row); specs are immutable,
         #: so the gather in :meth:`_spec_arrays` only pays the python
         #: attribute walk once per node (the held reference keeps the
@@ -75,6 +78,7 @@ class AnalyticBackend(BaseBackend):
     # -- scalar path (search trials, legacy oracle callers) -----------
     def invoke(self, node: Node) -> float:
         spec = self._spec(node)
+        self.invocations += 1
         rt = spec.runtime(node.config, input_scale=self.input_scale)
         return self._noise_one(rt)
 
@@ -136,6 +140,7 @@ class AnalyticBackend(BaseBackend):
 
     # -- vectorized path (one engine step == one numpy evaluation) -----
     def invoke_batch(self, nodes: Sequence[Node]) -> Tuple[np.ndarray, np.ndarray]:
+        self.invocations += len(nodes)
         cfgs = [node.config for node in nodes]
         cpu = np.array([c.cpu for c in cfgs])
         mem = np.array([c.mem for c in cfgs])
@@ -159,6 +164,7 @@ class AnalyticBackend(BaseBackend):
         the per-node Python cost is amortized over all C candidates (see
         :meth:`repro_torch.core.env.Environment.execute_candidates`).
         """
+        self.invocations += int(np.size(cpu))
         return self._surface(np.asarray(cpu, dtype=np.float64),
                              np.asarray(mem, dtype=np.float64),
                              self._spec_arrays(nodes))
@@ -174,6 +180,7 @@ class AnalyticBackend(BaseBackend):
         :meth:`replay_noise` at the (instance, function) coordinate.
         For the plain analytic backend this *is* ``invoke_config_batch``.
         """
+        self.invocations += int(np.size(cpu))
         self._suppress_noise = True
         try:
             return self._surface(np.asarray(cpu, dtype=np.float64),
@@ -187,6 +194,63 @@ class AnalyticBackend(BaseBackend):
         """Per-(instance, function) noise factors for one batched
         replay plane; ``None`` means the surface is exact (no noise)."""
         return None
+
+    # -- lockstep grid-search fusion contract (core.gridsearch) --------
+    def grid_fusion_key(self) -> Optional[tuple]:
+        """Cells over analytic surfaces with the same ``input_scale``
+        may share one fused response-surface evaluation per lockstep
+        round. Subclasses that override any piece of the batch pipeline
+        get ``None`` (per-cell serving) unless they re-opt-in."""
+        cls = type(self)
+        if (cls.invoke_batch is not AnalyticBackend.invoke_batch
+                or cls.invoke_config_batch is not
+                AnalyticBackend.invoke_config_batch
+                or cls._surface is not AnalyticBackend._surface
+                or cls._spec_arrays is not AnalyticBackend._spec_arrays):
+            return None
+        if not (self.deterministic or self.batch_safe):
+            return None
+        return ("analytic-surface", float(self.input_scale))
+
+    def surface_tables(self, nodes: Sequence[Node]) -> Tuple[np.ndarray, ...]:
+        """Surface constants of ``nodes`` for :meth:`surface_probe` —
+        a pure gather (no backend state touched)."""
+        return self._spec_arrays(nodes)
+
+    def surface_probe(self, cpu: np.ndarray, mem: np.ndarray,
+                      tables: Tuple[np.ndarray, ...]
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+        """Noise-free surface evaluation for a fused cross-cell batch.
+
+        Advances neither the invocation counter nor any rng stream —
+        the grid driver accounts each cell's share to that cell's own
+        backend (``invocations`` / :meth:`apply_invocation_noise`), so
+        per-cell bookkeeping matches the sequential path exactly."""
+        self._suppress_noise = True
+        try:
+            return self._surface(np.asarray(cpu, dtype=np.float64),
+                                 np.asarray(mem, dtype=np.float64), tables)
+        finally:
+            self._suppress_noise = False
+
+    def surface_floor(self, tables: Tuple[np.ndarray, ...]) -> np.ndarray:
+        """Per-node OOM thresholds implied by ``tables`` — the working-set
+        floors the batch pipeline compares ``mem`` against. Exposed so
+        the fused grid plane can reconstruct :meth:`invoke_batch`'s
+        failure strings (and the scalar ``ExecutionError`` message,
+        which formats the same two floats) without re-serving a failed
+        cell through the sequential path."""
+        return tables[2] * np.where(tables[6], self.input_scale, 1.0)
+
+    def apply_invocation_noise(self, rt: np.ndarray,
+                               ok: np.ndarray) -> np.ndarray:
+        """Apply the invocation noise the sequential batch call would
+        have drawn for these runtimes (identity on the analytic
+        surface; one ``rt.shape`` log-normal draw on the stochastic
+        one). Must be called with the same array shape the sequential
+        ``invoke_batch``/``invoke_config_batch`` call would have used,
+        so the backend's stream advances identically."""
+        return self._noise_batch(rt, ok)
 
 
 class StochasticBackend(AnalyticBackend):
@@ -284,6 +348,17 @@ class SimulatedPlatform:
                 noise_sigma=noise_sigma, seed=seed, input_scale=input_scale)
         else:
             self.backend = AnalyticBackend(input_scale=input_scale)
+
+    @property
+    def invocations(self) -> int:
+        return self.backend.invocations
+
+    def oracle(self, node: Node) -> float:
+        return self.backend.invoke(node)
+
+    def clamped_oracle(self, node: Node) -> float:
+        """Thrash-until-killed runtime for failing configs (see env.py)."""
+        return self.backend.invoke_clamped(node)
 
     def environment(self) -> Environment:
         return Environment(self.backend, pricing=self.pricing)

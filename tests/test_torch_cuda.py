@@ -620,3 +620,35 @@ def test_ssd_route_on_a_local_shard_is_the_unsharded_launch(
     assert (ssd_ops.intra_launches, ssd_ops.inter_launches) == \
         (before[0] + 1, before[1] + 1)
     assert torch.equal(got.full_tensor(), want)
+
+
+def test_campaign_on_the_card_matches_cpu(cuda, monkeypatch):
+    """A reduced portfolio campaign (4 workflows of size 6, aarc and
+    maff) with its replays swept on the card gives the rows of the same
+    campaign swept on the CPU, every replay one card sweep."""
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.core.campaign import (CampaignSpec, PortfolioSpec,
+                                           ReplaySpec, run_campaign)
+    spec = CampaignSpec(
+        portfolio=PortfolioSpec(n_workflows=4, size=6,
+                                slo_slacks=(1.5, 2.5)),
+        replay=ReplaySpec(n_instances=24, rate=0.2),
+        searchers=("aarc", "maff"),
+        searcher_kwargs={"aarc": {"batch_size": 4}}, seed=11)
+    sweeps = []
+    real = engine_mod.fast_plane_sweep
+
+    def counted(*args, device=None, **kw):
+        sweeps.append(device)
+        return real(*args, device=device, **kw)
+
+    monkeypatch.setattr(engine_mod, "fast_plane_sweep", counted)
+    card = run_campaign(spec)
+    assert sweeps == [None] * len(card.results)
+    cpu = run_campaign(spec, device="cpu")
+
+    def rows(report):
+        return [{k: v for k, v in row.items() if k != "wall_time_s"}
+                for row in report.to_rows()]
+
+    assert rows(card) == rows(cpu)
