@@ -131,11 +131,26 @@ Phases, in order; any failure exits non-zero:
      cluster every cell attains its SLO when seeded, so without it no
      round runs), its payload equal to the same run swept on the CPU, its
      budget ledger balanced;
- 12. one JSON line of serving numbers (memory, int8), one of training
+ 12. the online control plane on the card (no kernel of the port may
+     launch), each run through ``run_online`` on the card (``device=None``)
+     and again with ``device="cpu"``, the two payloads equal:
+     ``benchmarks/online_serving.py``'s INPUT_MIX (an infinite cluster
+     without cold starts, so that its deploy replays and challenger
+     validations sweep on the card) under the modes drift, never and
+     every_epoch, and once more with each validation widened to 4,096
+     arrivals, each run's wall time beside its sweeps' (CUDA events and
+     perf_counter); then the specs whose replays take the host's planes,
+     with no sweep allowed: LOAD_SHIFT under the three modes and NO_DRIFT,
+     ``benchmarks/placement.py``'s two scenarios (per-cell baseline,
+     packed, round-robin ablation) and ``benchmarks/autoscale.py``'s
+     COMPOUND_SHIFT (static, joint, config_only, scale_only); the
+     numbers those benchmarks gate with ``--smoke``, computed as they
+     compute them and held to their bars;
+ 13. one JSON line of serving numbers (memory, int8), one of training
      numbers, one of per-kernel numbers, one of AARC numbers, one of
      fleet numbers, one of distribution numbers, one of serving-side
-     distribution numbers, one of campaign numbers and, last, the device
-     line.
+     distribution numbers, one of campaign numbers, one of online
+     numbers and, last, the device line.
 """
 from __future__ import annotations
 
@@ -143,6 +158,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -163,10 +179,11 @@ from torch.distributed.tensor import DTensor
 from repro_torch.autotune import plan
 from repro_torch.configs import SHAPES, get_config, reduced_config
 from repro_torch.configs.shapes import Shape
-from repro_torch.core import (AdaptiveSpec, Campaign, CampaignSpec,
-                              Environment, GraphCentricScheduler,
+from repro_torch.core import (AdaptiveSpec, AutoscaleSpec, Campaign,
+                              CampaignSpec, Environment,
+                              GraphCentricScheduler, OnlineSpec,
                               PortfolioSpec, ReplaySpec, ResourceConfig,
-                              run_adaptive)
+                              run_adaptive, run_online)
 from repro_torch.core import adaptive as adaptive_mod
 from repro_torch.core import campaign as campaign_mod
 from repro_torch.core import engine as fleet_engine
@@ -176,6 +193,7 @@ from repro_torch.core.engine import (ClusterModel, ColdStartModel,
                                      run_fleet)
 from repro_torch.core.faults import (FaultModel, ResilienceModel,
                                      ResiliencePolicy)
+from repro_torch.core.placement import PlacementSpec
 from repro_torch.distributed import InjectedFault, ResilientLoop
 from repro_torch.distributed.collectives import (cross_pod_grad_sync,
                                                  dequantize_int8,
@@ -204,6 +222,9 @@ from repro_torch.models.transformer import layer_slice, tree_leaves, tree_map
 from repro_torch.serverless import (WORKLOADS, SimulatedPlatform,
                                     StochasticBackend, TorchMeasuredOracle,
                                     layered_workflow, workload_slo)
+from repro_torch.serverless.generator import (DriftEvent, DriftSchedule,
+                                              input_mix_schedule,
+                                              load_shift_schedule)
 from repro_torch.serving import RequestQueue, ServeEngine
 from repro_torch.training import (AdamWConfig, SyntheticDataset, adamw_init,
                                   make_train_step, restore_checkpoint,
@@ -340,6 +361,69 @@ CAMPAIGN_REPLAY = dict(n_instances=24, rate=0.2)
 CAMPAIGN_CLUSTER = ClusterModel(total_cpu=120.0, total_mem_mb=122880.0)
 CAMPAIGN_CELLS = 72
 ADAPTIVE_GRANTS = 4
+#: the online control plane on the card: benchmarks/online_serving.py's
+#: LOAD_SHIFT, INPUT_MIX and NO_DRIFT, benchmarks/placement.py's two
+#: scenarios and placement, benchmarks/autoscale.py's COMPOUND_SHIFT and
+#: actuator sets, each with the benchmark's numbers; INPUT_MIX's
+#: challenger validations widened to this many arrivals
+ONLINE_LOAD_SHIFT = OnlineSpec(
+    portfolio=PortfolioSpec(n_workflows=4, size=6, kinds=("chain",),
+                            slo_slacks=(1.6,)),
+    replay=ReplaySpec(n_instances=24, rate=0.1,
+                      cluster=ClusterModel(total_cpu=460.0,
+                                           total_mem_mb=460.0 * 1024.0)),
+    n_epochs=12, drift=load_shift_schedule(2, 3.0), seed=0,
+    total_budget=512)
+ONLINE_INPUT_MIX = OnlineSpec(
+    portfolio=PortfolioSpec(n_workflows=3, size=6, slo_slacks=(2.0,)),
+    replay=ReplaySpec(n_instances=24, rate=0.5),
+    n_epochs=10, drift=input_mix_schedule(2, 1.5), seed=0,
+    total_budget=512)
+ONLINE_NO_DRIFT = dataclasses.replace(ONLINE_LOAD_SHIFT,
+                                      drift=DriftSchedule(), n_epochs=6)
+ONLINE_MODES = ("drift", "never", "every_epoch")
+ONLINE_WIDE_INSTANCES = 4096
+PLACEMENT_SCENARIOS = {
+    "load_shift": OnlineSpec(
+        portfolio=PortfolioSpec(n_workflows=4, size=6, kinds=("chain",),
+                                slo_slacks=(1.6,)),
+        replay=ReplaySpec(n_instances=16, rate=0.1,
+                          cluster=ClusterModel(total_cpu=110.0,
+                                               total_mem_mb=110.0 * 1024.0)),
+        n_epochs=8, drift=load_shift_schedule(2, 3.0), seed=0,
+        mode="never"),
+    "input_mix": OnlineSpec(
+        portfolio=PortfolioSpec(n_workflows=4, size=6,
+                                kinds=("chain", "fan"), slo_slacks=(2.0,)),
+        replay=ReplaySpec(n_instances=16, rate=0.25,
+                          cluster=ClusterModel(total_cpu=110.0,
+                                               total_mem_mb=110.0 * 1024.0)),
+        n_epochs=8, drift=input_mix_schedule(2, 1.5), seed=0,
+        mode="never")}
+PLACEMENT = PlacementSpec(n_bins=4)
+COMPOUND_SHIFT = OnlineSpec(
+    portfolio=PortfolioSpec(n_workflows=2, size=5, kinds=("chain",),
+                            slo_slacks=(1.6,)),
+    replay=ReplaySpec(n_instances=16, rate=0.015,
+                      cluster=ClusterModel(total_cpu=60.0,
+                                           total_mem_mb=61440.0)),
+    n_epochs=14,
+    drift=DriftSchedule((DriftEvent(4, "load", 3.0),
+                         DriftEvent(4, "input", 1.3))),
+    seed=0, total_budget=768, cooldown_epochs=0,
+    autoscale=AutoscaleSpec(provision_floor=0.02, max_replicas=12,
+                            max_cluster_scale=6.0))
+AUTOSCALE_VARIANTS = (("joint", ("config", "scale")),
+                      ("config_only", ("config",)),
+                      ("scale_only", ("scale",)))
+#: the benchmarks' windows and bars: the post-drift window (the last 4
+#: epochs, in both), the autoscale benchmark's settle-in epochs, the
+#: online benchmark's recovery and probe bars, the autoscale benchmark's
+#: recovery bar (joint at or above it, config_only below it)
+POST_EPOCHS = 4
+SETTLE_EPOCHS = 2
+RECOVERY_BAR, BUDGET_BAR = 0.80, 0.50
+AUTOSCALE_RECOVERY_BAR = 0.95
 
 
 def check(ok: bool, what: str) -> None:
@@ -2350,6 +2434,246 @@ def campaigns_on_card():
     return result
 
 
+# --------------------------------------------------------------------------
+# phase 12: the online control plane on the card
+# --------------------------------------------------------------------------
+
+def online_on_both(tag: str, spec, *, card: bool):
+    """``run_online`` on the card, its sweeps timed, then on the CPU:
+    (the card's report, its numbers). The payloads must be equal; a run
+    whose replays take the contention-free plane (``card``) must sweep
+    on the card more than once, any other run never."""
+    sweeps = []
+    with timed_sweeps(sweeps):
+        t0 = time.perf_counter()
+        report = run_online(spec)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    cpu = run_online(spec, device="cpu")
+    cpu_wall_ms = (time.perf_counter() - t0) * 1e3
+    check(report.to_payload() == cpu.to_payload(),
+          f"{tag}: the card's payload equals the CPU's")
+    if card:
+        check(len(sweeps) > 1, f"{tag}: {len(sweeps)} card sweeps")
+    else:
+        check(not sweeps, f"{tag}: the host's planes swept {len(sweeps)} "
+                          f"times on the card")
+    numbers = dict(wall_ms=wall_ms, cpu_wall_ms=cpu_wall_ms,
+                   sweeps=len(sweeps),
+                   sweep_cuda_event_ms=sum(e for e, _ in sweeps),
+                   sweep_wall_ms=sum(w for _, w in sweeps),
+                   validations=report.n_validations,
+                   reconfigs=len(report.reconfigs),
+                   mean_attainment=report.mean_attainment())
+    numbers["sweep_share"] = numbers["sweep_wall_ms"] / wall_ms
+    print(f"  {tag}: wall {wall_ms:.1f} ms on the card, {cpu_wall_ms:.1f} "
+          f"ms on the CPU; {len(sweeps)} card sweeps "
+          f"{numbers['sweep_wall_ms']:.3f} ms by perf_counter "
+          f"({numbers['sweep_cuda_event_ms']:.3f} ms by CUDA events), "
+          f"{numbers['sweep_share']:.4f} of the wall; "
+          f"{report.n_validations} validations, {len(report.reconfigs)} "
+          f"grants; payload equal to the CPU's")
+    return report, numbers
+
+
+def drift_gates(spec, online, static, naive) -> dict:
+    """``benchmarks/online_serving.py::drift_case``'s numbers from its
+    three runs: the static fleet's attainment before the drift, each
+    run's over the last POST_EPOCHS epochs, the share of the static
+    fleet's loss that the online run recovers, and its probe samples over
+    the naive per-epoch re-search's."""
+    drift_epoch = min(e.epoch for e in spec.drift.events)
+    post = range(spec.n_epochs - POST_EPOCHS, spec.n_epochs)
+    pre_att = static.mean_attainment(range(0, drift_epoch))
+    static_post = static.mean_attainment(post)
+    online_post = online.mean_attainment(post)
+    loss = pre_att - static_post
+    online_spent = online.budget["spent"]
+    naive_spent = naive.budget["spent"]
+    return dict(pre_attainment=pre_att, static_post=static_post,
+                online_post=online_post,
+                naive_post=naive.mean_attainment(post),
+                attainment_loss=loss,
+                recovery=((online_post - static_post) / loss)
+                if loss > 1e-9 else float("nan"),
+                online_spent=online_spent, naive_spent=naive_spent,
+                probe_fraction=(online_spent / naive_spent)
+                if naive_spent else float("nan"),
+                grants=len(online.reconfigs),
+                swaps=sum(r.accepted for r in online.reconfigs))
+
+
+def no_drift_identical(online, static) -> bool:
+    """``benchmarks/online_serving.py::no_drift_case``'s verdict: with no
+    drift the online run serves bit for bit as the static one."""
+    a, b = online.to_payload(), static.to_payload()
+    return (a["epochs"] == b["epochs"]
+            and a["epoch_attainment"] == b["epoch_attainment"]
+            and not a["reconfigs"] and not b["reconfigs"]
+            and a["budget"]["spent"] == 0)
+
+
+def placement_gates(baseline, packed, ablation) -> dict:
+    """``benchmarks/placement.py::placement_case``'s numbers: mean
+    attainment and total cost of each run, and its two verdicts."""
+    def total_cost(report):
+        return float(sum(float(r["cost"]) for r in report.epochs))
+    out = {}
+    for name, report in (("baseline", baseline), ("packed", packed),
+                         ("ablation", ablation)):
+        out[f"{name}_attainment"] = report.mean_attainment()
+        out[f"{name}_cost"] = total_cost(report)
+    tol = 1e-9
+    out["packed_ge_baseline"] = bool(
+        out["packed_attainment"] >= out["baseline_attainment"] - tol)
+    out["ablation_worse"] = bool(
+        out["ablation_attainment"] < out["packed_attainment"] - tol
+        or out["ablation_cost"] > out["packed_cost"] + tol)
+    return out
+
+
+def autoscale_gates(spec, static, runs) -> dict:
+    """``benchmarks/autoscale.py::autoscale_case``'s numbers: the static
+    fleet's settled pre-drift attainment, and per actuator set its
+    post-window attainment, mean cost, recovery, cost per attained unit
+    (None where it attains nothing) and replicas."""
+    drift_epoch = min(e.epoch for e in spec.drift.events)
+    post = range(spec.n_epochs - POST_EPOCHS, spec.n_epochs)
+
+    def post_cost(report):
+        costs = [e["cost"] for e in report.epochs if e["epoch"] in post]
+        return sum(costs) / len(costs) if costs else float("nan")
+
+    pre_att = static.mean_attainment(range(SETTLE_EPOCHS, drift_epoch))
+    static_post = static.mean_attainment(post)
+    loss = pre_att - static_post
+    out = dict(pre_attainment=pre_att, static_post=static_post,
+               static_post_cost=post_cost(static), attainment_loss=loss)
+    for name, report in runs.items():
+        att = report.mean_attainment(post)
+        cost = post_cost(report)
+        out[f"{name}_post"] = att
+        out[f"{name}_post_cost"] = cost
+        out[f"{name}_recovery"] = ((att - static_post) / loss) \
+            if loss > 1e-9 else float("nan")
+        out[f"{name}_cost_at_attainment"] = (cost / att) if att > 1e-9 \
+            else None
+        out[f"{name}_total_replicas"] = sum(
+            sum(c.replicas.values()) for c in report.cells
+            if c.replicas is not None)
+    return out
+
+
+def online_on_card():
+    """Phase 12: INPUT_MIX swept on the card, then the specs that run on
+    the host's planes, each payload against the CPU's, and the three
+    benchmarks' gates held to their bars."""
+    t0 = time.perf_counter()
+    runs, reports = {}, {}
+    print(" the contention-free replays, swept on the card:")
+    for mode in ONLINE_MODES:
+        reports[f"input_mix {mode}"], runs[f"input_mix {mode}"] = \
+            online_on_both(f"input_mix {mode}",
+                           dataclasses.replace(ONLINE_INPUT_MIX, mode=mode),
+                           card=True)
+    wide = dataclasses.replace(ONLINE_INPUT_MIX,
+                               validation_instances=ONLINE_WIDE_INSTANCES)
+    _, runs["input_mix wide"] = online_on_both(
+        f"input_mix, validations of {ONLINE_WIDE_INSTANCES} arrivals", wide,
+        card=True)
+    print(" the host's planes (finite clusters, replica pools):")
+    host = [(f"load_shift {mode}",
+             dataclasses.replace(ONLINE_LOAD_SHIFT, mode=mode))
+            for mode in ONLINE_MODES]
+    host += [(f"no_drift {mode}", dataclasses.replace(ONLINE_NO_DRIFT,
+                                                      mode=mode))
+             for mode in ("drift", "never")]
+    for scenario, spec in PLACEMENT_SCENARIOS.items():
+        host += [(f"placement {scenario} baseline", spec),
+                 (f"placement {scenario} packed",
+                  dataclasses.replace(spec, placement=PLACEMENT)),
+                 (f"placement {scenario} ablation", dataclasses.replace(
+                     spec, placement=dataclasses.replace(PLACEMENT,
+                                                         affinity=False)))]
+    host.append(("compound_shift static",
+                 dataclasses.replace(COMPOUND_SHIFT, mode="never")))
+    host += [(f"compound_shift {name}", dataclasses.replace(
+                 COMPOUND_SHIFT, autoscale=dataclasses.replace(
+                     COMPOUND_SHIFT.autoscale, actuators=actuators)))
+             for name, actuators in AUTOSCALE_VARIANTS]
+    for tag, spec in host:
+        reports[tag], runs[tag] = online_on_both(tag, spec, card=False)
+
+    gates = {case: drift_gates(spec, *(reports[f"{case} {mode}"]
+                                       for mode in ONLINE_MODES))
+             for case, spec in (("load_shift", ONLINE_LOAD_SHIFT),
+                                ("input_mix", ONLINE_INPUT_MIX))}
+    gates["no_drift"] = dict(bit_identical=no_drift_identical(
+        reports["no_drift drift"], reports["no_drift never"]))
+    for scenario in PLACEMENT_SCENARIOS:
+        gates[f"placement {scenario}"] = placement_gates(
+            *(reports[f"placement {scenario} {name}"]
+              for name in ("baseline", "packed", "ablation")))
+    gates["compound_shift"] = autoscale_gates(
+        COMPOUND_SHIFT, reports["compound_shift static"],
+        {name: reports[f"compound_shift {name}"]
+         for name, _ in AUTOSCALE_VARIANTS})
+
+    print(" the benchmarks' gates:")
+    for case in ("load_shift", "input_mix"):
+        g = gates[case]
+        print(f"  {case}: attainment {g['pre_attainment']:.4f} before the "
+              f"drift, after it static {g['static_post']:.4f}, online "
+              f"{g['online_post']:.4f}, naive {g['naive_post']:.4f}; "
+              f"recovery {g['recovery']:.4f} (bar {RECOVERY_BAR}), probes "
+              f"{g['online_spent']} of the naive re-search's "
+              f"{g['naive_spent']} = {g['probe_fraction']:.4f} (bar "
+              f"{BUDGET_BAR})")
+        check(g["recovery"] >= RECOVERY_BAR,
+              f"{case}: recovery {g['recovery']} under {RECOVERY_BAR}")
+        check(g["probe_fraction"] <= BUDGET_BAR,
+              f"{case}: probe fraction {g['probe_fraction']} over "
+              f"{BUDGET_BAR}")
+    print(f"  no_drift: online bit for bit the static fleet: "
+          f"{gates['no_drift']['bit_identical']}")
+    check(gates["no_drift"]["bit_identical"],
+          "no_drift: the online run equals the static one")
+    for scenario in PLACEMENT_SCENARIOS:
+        g = gates[f"placement {scenario}"]
+        print(f"  placement {scenario}: attainment packed "
+              f"{g['packed_attainment']:.4f}, baseline "
+              f"{g['baseline_attainment']:.4f}, ablation "
+              f"{g['ablation_attainment']:.4f}; cost packed "
+              f"{g['packed_cost']:.2f}, baseline {g['baseline_cost']:.2f}, "
+              f"ablation {g['ablation_cost']:.2f}")
+        check(g["packed_ge_baseline"] and g["ablation_worse"],
+              f"placement {scenario}: packed at or above the baseline and "
+              f"the ablation worse than packed: {g}")
+    g = gates["compound_shift"]
+    cost_at = {name: (math.inf if g[f"{name}_cost_at_attainment"] is None
+                      else g[f"{name}_cost_at_attainment"])
+               for name, _ in AUTOSCALE_VARIANTS}
+    print(f"  compound_shift: recovery joint {g['joint_recovery']:.4f}, "
+          f"config_only {g['config_only_recovery']:.4f}, scale_only "
+          f"{g['scale_only_recovery']:.4f} (bar {AUTOSCALE_RECOVERY_BAR}); "
+          f"cost at attainment joint {cost_at['joint']:.2f}, config_only "
+          f"{cost_at['config_only']:.2f}, scale_only "
+          f"{cost_at['scale_only']:.2f}")
+    check(g["joint_recovery"] >= AUTOSCALE_RECOVERY_BAR,
+          f"compound_shift: joint recovery {g['joint_recovery']}")
+    check(g["config_only_recovery"] < AUTOSCALE_RECOVERY_BAR,
+          f"compound_shift: config_only recovery "
+          f"{g['config_only_recovery']}: the capacity wall did not hold")
+    check(cost_at["joint"] < min(cost_at["config_only"],
+                                 cost_at["scale_only"]),
+          f"compound_shift: joint cost at attainment {cost_at}")
+    result = dict(runs=runs, gates=gates,
+                  phase_wall_s=time.perf_counter() - t0)
+    print(f"the online control plane on the card took "
+          f"{result['phase_wall_s']:.1f} s")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2595,6 +2919,14 @@ def main() -> int:
     check(got == (0, 0, 0, 0), f"no kernel launched by the campaigns, got "
                                f"{got}")
 
+    # nor does the online control plane: the counts stay at 0 through it
+    print("the online control plane on the card:")
+    online = online_on_card()
+    got = (flash_ops.launches, rms_ops.launches, ssd_ops.intra_launches,
+           ssd_ops.inter_launches)
+    check(got == (0, 0, 0, 0), f"no kernel launched by the online control "
+                               f"plane, got {got}")
+
     # phase 10's launches, per model: one sharded prefill and its serve
     # steps
     sharded_launches = lambda name: {
@@ -2673,6 +3005,7 @@ def main() -> int:
     print(json.dumps({"distribution": distribution}))
     print(json.dumps({"distribution_serving": dist_serving}))
     print(json.dumps({"campaign": campaign}))
+    print(json.dumps({"online": online}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -18,9 +18,15 @@ Portfolio campaigns (:mod:`repro_torch.core.campaign`) and adaptive
 budget campaigns (:mod:`repro_torch.core.adaptive`) search every cell
 through the lockstep grid runner (:mod:`repro_torch.core.gridsearch`,
 whose ``run_grid_search`` is exported here too) and replay what they
-found through the engine, on the card by default. Not yet ported: the
-reference's autoscale and online modules.
+found through the engine, on the card by default, and the online
+control plane (:mod:`repro_torch.core.online`, with the shared-cluster
+placement of :mod:`repro_torch.core.placement` and the joint autoscaler
+of :mod:`repro_torch.core.autoscale`) serves a portfolio through
+drift-triggered reconfiguration, its contention-free replays swept on
+the card by default too.
 """
+from repro_torch.core.autoscale import (AutoscaleSpec, ScaleResult,
+                                        ScaleSearcher)
 from repro_torch.core.backend import (BaseBackend, CallableBackend,
                                       RuntimeBackend, as_backend)
 from repro_torch.core.campaign import (Campaign, CampaignReport,
@@ -53,12 +59,16 @@ from repro_torch.core.gridsearch import run_grid_search
 from repro_torch.core.adaptive import (AdaptiveCampaign, AdaptiveReport,
                                        AdaptiveSpec, GrantScorer,
                                        run_adaptive)
+from repro_torch.core.online import (OnlineController, OnlineReport,
+                                     OnlineSpec, ReconfigRecord, ServingCell,
+                                     run_online)
 
 __all__ = [
     "BaseBackend", "CallableBackend", "RuntimeBackend", "as_backend",
     "DEFAULT_PRICING", "PricingModel", "workflow_cost",
     "SubPath", "find_critical_path", "find_detour_subpath", "runtime_sum",
     "Node", "Workflow",
+    "AutoscaleSpec", "ScaleResult", "ScaleSearcher",
     "ClusterModel", "ColdStartModel", "FleetCarry", "FleetEngine",
     "FleetReport", "INFINITE_CLUSTER", "InstanceResult", "NO_COLD_START",
     "PoissonArrivals", "ReplicaModel", "TraceArrivals", "arrival_times",
@@ -78,4 +88,6 @@ __all__ = [
     "run_campaign",
     "AdaptiveCampaign", "AdaptiveReport", "AdaptiveSpec", "GrantScorer",
     "run_adaptive",
+    "OnlineController", "OnlineReport", "OnlineSpec",
+    "ReconfigRecord", "ServingCell", "run_online",
 ]

@@ -40,9 +40,7 @@ route candidate evaluation through the vectorized paths
 (:meth:`Environment.execute_candidates`, Algorithm 2's batched probe
 rounds).
 
-The port's copy of ``src/repro/core/search.py``. Not yet copied: the
-``autoscale`` searcher that :func:`make_searcher` imports beside
-``faults``'s in the reference.
+The port's copy of ``src/repro/core/search.py``.
 """
 from __future__ import annotations
 
@@ -467,7 +465,8 @@ def make_searcher(name: str, env: EnvLike, **kwargs) -> Searcher:
     except KeyError:
         # wrapper searchers register themselves on import; importing
         # them here (not at module top) keeps core.search free of a
-        # circular dependency on core.faults
+        # circular dependency on core.autoscale / core.faults
+        import repro_torch.core.autoscale  # noqa: F401
         import repro_torch.core.faults     # noqa: F401
         try:
             cls = SEARCHERS[name]

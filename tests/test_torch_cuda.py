@@ -652,3 +652,29 @@ def test_campaign_on_the_card_matches_cpu(cuda, monkeypatch):
                 for row in report.to_rows()]
 
     assert rows(card) == rows(cpu)
+
+
+def test_online_run_on_the_card_matches_cpu(cuda, monkeypatch):
+    """A reduced input-mix online run (2 workflows, 4 epochs, drift at
+    epoch 2) on the card: its deploy replays and challenger validations
+    sweep there, and its payload equals the same run swept on the CPU."""
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.core.campaign import PortfolioSpec, ReplaySpec
+    from repro_torch.core.online import OnlineSpec, run_online
+    from repro_torch.serverless.generator import input_mix_schedule
+    spec = OnlineSpec(
+        portfolio=PortfolioSpec(n_workflows=2, size=6, slo_slacks=(2.0,)),
+        replay=ReplaySpec(n_instances=16, rate=0.5), n_epochs=4,
+        drift=input_mix_schedule(2, 1.5), seed=0, total_budget=128)
+    sweeps = []
+    real = engine_mod.fast_plane_sweep
+
+    def counted(*args, device=None, **kw):
+        sweeps.append(device)
+        return real(*args, device=device, **kw)
+
+    monkeypatch.setattr(engine_mod, "fast_plane_sweep", counted)
+    card = run_online(spec)
+    assert len(sweeps) > 1 and set(sweeps) == {None}
+    monkeypatch.setattr(engine_mod, "fast_plane_sweep", real)
+    assert card.to_payload() == run_online(spec, device="cpu").to_payload()

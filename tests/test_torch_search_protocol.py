@@ -115,15 +115,19 @@ def test_retune_state_equals_reference(reset):
 
 
 def test_registry_and_env_instance_equal_reference():
-    """The registry (the resilience searcher registers itself when an
-    unknown name first imports it) and an ``Environment`` instance reused
-    across searches with its trace reset."""
+    """The registry (the scale and resilience searchers register
+    themselves when an unknown name first imports them) and an
+    ``Environment`` instance reused across searches with its trace
+    reset."""
     with pytest.raises(ValueError) as exc:
         port_search.make_searcher("simulated-annealing",
                                   port_platform.make_env)
     assert str(exc.value) == ("unknown searcher 'simulated-annealing'; "
                               "choose from ['aarc', 'bo', 'maff', "
-                              "'resilience']")
+                              "'resilience', 'scale']")
+    with pytest.raises(ValueError) as ref_exc:
+        ref_search.make_searcher("simulated-annealing", ref_platform.make_env)
+    assert str(exc.value) == str(ref_exc.value)
     out = []
     for pkg in (PORT, REF):
         env = pkg.platform.make_env()
