@@ -69,6 +69,7 @@ from repro_torch.models.transformer import (BLOCK_CACHE_AXES,
                                             tree_leaves, tree_map,
                                             unstack_params)
 from repro_torch.distributed.sharding import constrain, per_shard
+from repro_torch.tracing import span
 
 Tree = Dict[str, object]
 
@@ -282,6 +283,14 @@ class Model:
                 "final_norm": self._norm_params()}
 
     # -- shared pieces ----------------------------------------------------------
+
+    def _head(self, params: Tree, x: torch.Tensor, last: bool = False
+              ) -> torch.Tensor:
+        """The final norm and the logits (span ``rt.logits``), of the last
+        position only if ``last``."""
+        with span("rt.logits"):
+            x = apply_norm(params["final_norm"], x, self.cfg.norm)
+            return self._logits(params, x[:, -1:] if last else x)
 
     def _logits(self, params: Tree, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -589,6 +598,11 @@ class Model:
     def prefill(self, params: Tree, batch: Dict[str, torch.Tensor],
                 max_len: int) -> Tuple[torch.Tensor, Tree]:
         """Process the full prompt; emit last-position logits + cache."""
+        with span("rt.prefill"):
+            return self._prefill(params, batch, max_len)
+
+    def _prefill(self, params: Tree, batch: Dict[str, torch.Tensor],
+                 max_len: int) -> Tuple[torch.Tensor, Tree]:
         cfg = self.cfg
         tokens = batch["tokens"]
         b, s = tokens.shape
@@ -600,13 +614,13 @@ class Model:
             x = self._embed_positions(params, tokens)
             caches = []
             for i in range(cfg.n_layers):
-                x, c = prefill_cross_block(layer_slice(params["layers"], i),
-                                           constrain(x, ACT_AXES), enc_out,
-                                           bcfg, max_len)
+                with span("rt.cross"):
+                    x, c = prefill_cross_block(
+                        layer_slice(params["layers"], i),
+                        constrain(x, ACT_AXES), enc_out, bcfg, max_len)
                 caches.append(c)
-            x = apply_norm(params["final_norm"], x, cfg.norm)
-            return self._logits(params, x[:, -1:]), {"layers": stack(caches),
-                                                     "length": length}
+            return self._head(params, x, last=True), {
+                "layers": stack(caches), "length": length}
         x = self._embed_tokens(params, tokens)
         if cfg.family == "hybrid":
             # mamba prefill runs the chunked scan and keeps final states;
@@ -615,16 +629,16 @@ class Model:
             mamba_states, attn_caches = [], []
             for i, flag in enumerate(self._shared_flags()):
                 lp = layer_slice(params["layers"], i)
-                hn = apply_norm(lp["norm"], x, cfg.norm)
-                y, st = self._mamba_prefill(lp["mamba"], hn)
-                x = x + y
+                with span("rt.mamba"):
+                    hn = apply_norm(lp["norm"], x, cfg.norm)
+                    y, st = self._mamba_prefill(lp["mamba"], hn)
+                    x = x + y
                 mamba_states.append(st)
                 if flag:
                     x, _, c = prefill_decoder_block(params["shared"], x,
                                                     sb_cfg, max_len)
                     attn_caches.append(c)
-            x = apply_norm(params["final_norm"], x, cfg.norm)
-            return self._logits(params, x[:, -1:]), {
+            return self._head(params, x, last=True), {
                 "mamba": stack(mamba_states), "attn": stack(attn_caches),
                 "length": length}
         if cfg.family == "ssm":
@@ -632,17 +646,17 @@ class Model:
             # the matrix memory; the sLSTM runs its recurrence
             states = []
             for lp, kind in zip(params["layers"], self._xlstm_kinds()):
-                hn = apply_norm(lp["norm"], x, cfg.norm)
-                if kind == "mlstm":
-                    y, st = xl.apply_mlstm_with_state(lp["block"], hn,
-                                                      cfg.xlstm)
-                else:
-                    y, st = xl.apply_slstm(lp["block"], hn, cfg.xlstm)
-                x = x + y
+                with span(f"rt.{kind}"):
+                    hn = apply_norm(lp["norm"], x, cfg.norm)
+                    if kind == "mlstm":
+                        y, st = xl.apply_mlstm_with_state(lp["block"], hn,
+                                                          cfg.xlstm)
+                    else:
+                        y, st = xl.apply_slstm(lp["block"], hn, cfg.xlstm)
+                    x = x + y
                 states.append(st)
-            x = apply_norm(params["final_norm"], x, cfg.norm)
-            return self._logits(params, x[:, -1:]), {"layers": states,
-                                                     "length": length}
+            return self._head(params, x, last=True), {"layers": states,
+                                                      "length": length}
         if cfg.family == "vlm":
             bcfg = cfg.block_cfg(moe=False)
             patches = batch["patches"]
@@ -657,14 +671,14 @@ class Model:
                         bcfg, max_len)
                     seg_kv.append(c)
                 self_kv.append(stack(seg_kv))
-                xk, xv = cross_source_kv(sp["cross"]["cross_attn"], patches,
-                                         bcfg)
+                with span("rt.cross"):
+                    xk, xv = cross_source_kv(sp["cross"]["cross_attn"],
+                                             patches, bcfg)
+                    x = apply_cross_block(sp["cross"], x, patches, bcfg,
+                                          gated=True)
                 xks.append(xk)
                 xvs.append(xv)
-                x = apply_cross_block(sp["cross"], x, patches, bcfg,
-                                      gated=True)
-            x = apply_norm(params["final_norm"], x, cfg.norm)
-            return self._logits(params, x[:, -1:]), {
+            return self._head(params, x, last=True), {
                 "self": stack(self_kv),
                 "cross": {"xk": torch.stack(xks), "xv": torch.stack(xvs)},
                 "length": length}
@@ -676,9 +690,8 @@ class Model:
                                             max_len,
                                             quantized=cfg.kv_cache_quant)
             caches.append(c)
-        x = apply_norm(params["final_norm"], x, cfg.norm)
-        return self._logits(params, x[:, -1:]), {"layers": stack(caches),
-                                                 "length": length}
+        return self._head(params, x, last=True), {"layers": stack(caches),
+                                                  "length": length}
 
     def _mamba_prefill(self, mp: Tree, hn: torch.Tensor):
         """Mamba2 full-seq pass that also returns the final SSM state.
@@ -698,6 +711,11 @@ class Model:
         The cache's tensors are updated in place (the reference returns new
         ones); the returned cache holds them and the advanced length.
         """
+        with span("rt.decode"):
+            return self._decode_step(params, cache, tokens)
+
+    def _decode_step(self, params: Tree, cache: Tree, tokens: torch.Tensor
+                     ) -> Tuple[torch.Tensor, Tree]:
         cfg = self.cfg
         length = cache["length"]
         x = self._embed_tokens(params, tokens)
@@ -708,11 +726,12 @@ class Model:
             for i, flag in enumerate(self._shared_flags()):
                 lp = layer_slice(params["layers"], i)
                 mc = layer_slice(cache["mamba"], i)
-                hn = apply_norm(lp["norm"], x, cfg.norm)
-                y, new = m2.decode_mamba2(lp["mamba"], hn, mc, cfg.ssm)
-                x = x + y
-                for k, t in new.items():
-                    mc[k].copy_(t)
+                with span("rt.mamba"):
+                    hn = apply_norm(lp["norm"], x, cfg.norm)
+                    y, new = m2.decode_mamba2(lp["mamba"], hn, mc, cfg.ssm)
+                    x = x + y
+                    for k, t in new.items():
+                        mc[k].copy_(t)
                 if flag:
                     x, _ = decode_decoder_block(
                         params["shared"], x, layer_slice(cache["attn"], app),
@@ -722,18 +741,20 @@ class Model:
             decode = {"mlstm": xl.decode_mlstm, "slstm": xl.decode_slstm}
             for lp, kind, st in zip(params["layers"], self._xlstm_kinds(),
                                     cache["layers"]):
-                hn = apply_norm(lp["norm"], x, cfg.norm)
-                y, _ = decode[kind](lp["block"], hn, st, cfg.xlstm)
-                x = x + y
+                with span(f"rt.{kind}"):
+                    hn = apply_norm(lp["norm"], x, cfg.norm)
+                    y, _ = decode[kind](lp["block"], hn, st, cfg.xlstm)
+                    x = x + y
         elif cfg.family == "audio":
             bcfg = cfg.block_cfg(moe=False)
             pos = length.clamp(0, cfg.max_pos - 1).long()
             x = x + params["embed"]["pos"][pos][:, None, :]
             for i in range(cfg.n_layers):
-                x, _ = decode_cross_block(layer_slice(params["layers"], i),
-                                          constrain(x, ACT_AXES),
-                                          layer_slice(cache["layers"], i),
-                                          length, bcfg)
+                with span("rt.cross"):
+                    x, _ = decode_cross_block(
+                        layer_slice(params["layers"], i),
+                        constrain(x, ACT_AXES),
+                        layer_slice(cache["layers"], i), length, bcfg)
         elif cfg.family == "vlm":
             bcfg = cfg.block_cfg(moe=False)
             nseg, nself = self._vlm_seg()
@@ -745,9 +766,10 @@ class Model:
                                                 constrain(x, ACT_AXES),
                                                 layer_slice(sc, j), length,
                                                 bcfg)
-                x, _ = decode_cross_block(
-                    sp["cross"], x, layer_slice(cache["cross"], i), length,
-                    bcfg, gated=True)
+                with span("rt.cross"):
+                    x, _ = decode_cross_block(
+                        sp["cross"], x, layer_slice(cache["cross"], i),
+                        length, bcfg, gated=True)
         else:
             bcfg = cfg.block_cfg()
             for i in range(cfg.n_layers):
@@ -755,8 +777,7 @@ class Model:
                                             constrain(x, ACT_AXES),
                                             layer_slice(cache["layers"], i),
                                             length, bcfg)
-        x = apply_norm(params["final_norm"], x, cfg.norm)
-        return self._logits(params, x), out
+        return self._head(params, x), out
 
 
 def build_model(cfg: ModelConfig, device: DeviceLike = None) -> Model:

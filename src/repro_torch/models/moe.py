@@ -25,15 +25,24 @@ repeat itself bit for bit on the card:
     which ``remat="dots"`` saves, and the expert products are batched
     (``aten.bmm``), which it recomputes, as the reference's
     ``checkpoint_dots_with_no_batch_dims`` does.
+
+While tracing is on (:mod:`repro_torch.tracing`) the dispatch counts, per
+phase ("decode" for one token a sequence, "prefill" otherwise), the
+capacity rows it runs, the (token, expert) pairs the router chose and the
+pairs the experts took (:func:`read_moe_stats`). The counts known on the
+host are added at once; the pairs taken are kept as the step's own row
+map and summed only when read, so counting adds no kernel launch and no
+wait to the step.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.models.layers import dense_init, normal
 
 Params = Dict[str, torch.Tensor]
@@ -190,28 +199,67 @@ class _Combine(torch.autograd.Function):
         return grad[tok], None, None
 
 
+# -- dispatch counters ------------------------------------------------------
+
+_STAT_KEYS = ("capacity_rows", "routed_pairs", "taken_pairs")
+_stats: Dict[str, Dict[str, int]] = {}
+#: each phase's row maps (``_token_rows``) not yet summed
+_kept: Dict[str, List[torch.Tensor]] = {}
+
+
+def _count(phase: str, tok_ec: torch.Tensor, top_idx: torch.Tensor,
+           src: torch.Tensor) -> None:
+    st = _stats.setdefault(phase, dict.fromkeys(_STAT_KEYS, 0))
+    st["capacity_rows"] += tok_ec.numel()
+    st["routed_pairs"] += top_idx.numel()
+    _kept.setdefault(phase, []).append(src)
+
+
+def read_moe_stats() -> Dict[str, Dict[str, int]]:
+    """Per phase, the capacity rows run, the routed (token, expert) pairs
+    and the pairs taken since the last :func:`reset_moe_stats`, as Python
+    ints. Sums the kept row maps (a wait for the device) and drops them."""
+    for phase, kept in _kept.items():
+        if kept:
+            taken = sum((src >= 0).sum() for src in kept)
+            _stats[phase]["taken_pairs"] += int(taken)
+            kept.clear()
+    return {phase: dict(st) for phase, st in _stats.items()}
+
+
+def reset_moe_stats() -> None:
+    _stats.clear()
+    _kept.clear()
+
+
 def _dispatch(params: Params, xf: torch.Tensor, top_idx: torch.Tensor,
-              gate_ec: torch.Tensor, tok_ec: torch.Tensor) -> torch.Tensor:
+              gate_ec: torch.Tensor, tok_ec: torch.Tensor,
+              phase: Optional[str] = None) -> torch.Tensor:
     """Gather each expert's tokens (tok_ec (..., e, c), ids into xf's
-    rows), run the experts, weight by the gate and sum back to tokens."""
+    rows), run the experts, weight by the gate and sum back to tokens.
+    With a ``phase``, the dispatch is counted under it."""
     tok = tok_ec.reshape(-1)
     src = _token_rows(tok_ec, top_idx, xf.shape[0])
+    if phase is not None:
+        _count(phase, tok_ec, top_idx, src)
     x_ec = _Gather.apply(xf, tok, src).reshape(*tok_ec.shape, -1)
     y_ec = _experts(params, x_ec)
     y_ec = y_ec * gate_ec[..., None].to(y_ec.dtype)
     return _Combine.apply(y_ec.reshape(tok.numel(), -1), tok, src)
 
 
-def _dispatch_global(params: Params, xf: torch.Tensor, cfg: MoEConfig):
+def _dispatch_global(params: Params, xf: torch.Tensor, cfg: MoEConfig,
+                     phase: Optional[str] = None):
     """Expert-major top-k over the whole token set. Returns (out, probs,
     top_idx, tok_ec), tok_ec (e, c) the tokens each expert took."""
     routing, probs, top_idx = _routing(params, xf, cfg)
     gate_ec, tok_ec = _top_k(routing.T, _capacity(xf.shape[0], cfg, 8))
-    return _dispatch(params, xf, top_idx, gate_ec, tok_ec), probs, \
+    return _dispatch(params, xf, top_idx, gate_ec, tok_ec, phase), probs, \
         top_idx, tok_ec
 
 
-def _dispatch_grouped(params: Params, x: torch.Tensor, cfg: MoEConfig):
+def _dispatch_grouped(params: Params, x: torch.Tensor, cfg: MoEConfig,
+                      phase: Optional[str] = None):
     """Per-sequence capacity: routing and the capacity top-k are batched
     over the batch dim. Returns (out (b*s, d), probs, top_idx, tok_ec
     (b, e, c)). The gather takes the flattened (b*e*c) index set and never
@@ -222,7 +270,7 @@ def _dispatch_grouped(params: Params, x: torch.Tensor, cfg: MoEConfig):
     offset = torch.arange(0, b * s, s, device=x.device)[:, None, None]
     top_idx = top_idx.reshape(b * s, -1)
     out = _dispatch(params, x.reshape(b * s, d), top_idx, gate_ec,
-                    tok_ec + offset)
+                    tok_ec + offset, phase)
     return out, probs.reshape(b * s, -1), top_idx, tok_ec
 
 
@@ -231,10 +279,12 @@ def apply_moe(params: Params, x: torch.Tensor, cfg: MoEConfig
     """x: (batch, seq, d) -> (output, aux_loss)."""
     b, s, d = x.shape
     xf = x.reshape(b * s, d)
+    phase = ("decode" if s == 1 else "prefill") if tracing.enabled() \
+        else None
     if cfg.dispatch == "grouped":
-        out, probs, top_idx, _ = _dispatch_grouped(params, x, cfg)
+        out, probs, top_idx, _ = _dispatch_grouped(params, x, cfg, phase)
     elif cfg.dispatch == "global":
-        out, probs, top_idx, _ = _dispatch_global(params, xf, cfg)
+        out, probs, top_idx, _ = _dispatch_global(params, xf, cfg, phase)
     else:
         raise ValueError(f"unknown MoE dispatch {cfg.dispatch!r}")
 

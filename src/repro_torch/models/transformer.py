@@ -34,6 +34,7 @@ from repro_torch.models.layers import (apply_mlp, apply_norm, make_mlp_params,
                                        make_norm_params, mlp_axes, norm_axes)
 from repro_torch.models.moe import (MoEConfig, apply_moe, make_moe_params,
                                     moe_axes)
+from repro_torch.tracing import span
 
 Tree = Dict[str, object]
 
@@ -153,19 +154,24 @@ def decoder_block_axes(cfg: BlockConfig) -> Tree:
     return axes
 
 
-def _ffn(params: Tree, h: torch.Tensor, cfg: BlockConfig
+def _ffn(params: Tree, x: torch.Tensor, cfg: BlockConfig
          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Second sublayer: MLP or MoE. Returns (out, aux_loss). On a mesh the
-    MoE runs replicated: its dispatch (the capacity top-k over tokens, the
-    row map written in place, the gathers and sums of ``_Gather`` /
-    ``_Combine``) has no DTensor sharding strategy."""
+    """Second sublayer, its norm then an MLP or MoE (span ``rt.mlp`` /
+    ``rt.moe``). Returns (out, aux_loss), out without the residual. On a
+    mesh the MoE runs replicated: its dispatch (the capacity top-k over
+    tokens, the row map written in place, the gathers and sums of
+    ``_Gather`` / ``_Combine``) has no DTensor sharding strategy."""
     if cfg.moe is not None:
         # imported here: repro_torch.distributed imports the training
         # code, which imports this module
         from repro_torch.distributed.sharding import replicated
-        return replicated(apply_moe, params["moe"], h, cfg.moe)
-    return (apply_mlp(params["mlp"], h, cfg.mlp),
-            torch.zeros((), dtype=torch.float32, device=h.device))
+        with span("rt.moe"):
+            h = apply_norm(params["norm2"], x, cfg.norm)
+            return replicated(apply_moe, params["moe"], h, cfg.moe)
+    with span("rt.mlp"):
+        h = apply_norm(params["norm2"], x, cfg.norm)
+        return (apply_mlp(params["mlp"], h, cfg.mlp),
+                torch.zeros((), dtype=torch.float32, device=h.device))
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -176,12 +182,15 @@ def _attend_and_ffn(params: Tree, x: torch.Tensor, cfg: BlockConfig,
                     causal: bool, positions: torch.Tensor):
     """Shared body of the full-sequence block; returns (x, aux, k, v)."""
     b, s, _ = x.shape
-    h = apply_norm(params["norm1"], x, cfg.norm)
-    q, k, v = _project_qkv(params["attn"], h, h, cfg.n_heads, cfg.kv_heads,
-                           cfg.head_dim, positions, positions, cfg.rope_theta)
-    o = sdpa(q, k, v, causal=causal, impl=cfg.attn_impl)
-    x = x + o.reshape(b, s, cfg.n_heads * cfg.head_dim) @ params["attn"]["wo"]
-    f, aux = _ffn(params, apply_norm(params["norm2"], x, cfg.norm), cfg)
+    with span("rt.attn"):
+        h = apply_norm(params["norm1"], x, cfg.norm)
+        q, k, v = _project_qkv(params["attn"], h, h, cfg.n_heads,
+                               cfg.kv_heads, cfg.head_dim, positions,
+                               positions, cfg.rope_theta)
+        o = sdpa(q, k, v, causal=causal, impl=cfg.attn_impl)
+        x = x + o.reshape(b, s, cfg.n_heads * cfg.head_dim) \
+            @ params["attn"]["wo"]
+    f, aux = _ffn(params, x, cfg)
     return x + f, aux, k, v
 
 
@@ -347,28 +356,31 @@ def decode_decoder_block(params: Tree, x: torch.Tensor, cache: Dict,
     block's aux loss is dropped.
     """
     b = x.shape[0]
-    h = apply_norm(params["norm1"], x, cfg.norm)
-    positions = length[:, None]
-    q, k_new, v_new = _project_qkv(params["attn"], h, h, cfg.n_heads,
-                                   cfg.kv_heads, cfg.head_dim, positions,
-                                   positions, cfg.rope_theta)
-    max_len = cache["k"].shape[1]
-    at = length.clamp(max=max_len - 1)
-    if "k_scale" in cache:
-        for name, new in (("k", k_new), ("v", v_new)):
-            q_new, s_new = _quantize_kv(new)
-            _write_at(cache[name], at, q_new[:, 0])
-            _write_at(cache[f"{name}_scale"], at, s_new[:, 0])
-        k = _dequantize_kv(cache["k"], cache["k_scale"], x.dtype)
-        v = _dequantize_kv(cache["v"], cache["v_scale"], x.dtype)
-    else:
-        _write_at(cache["k"], at, k_new[:, 0])
-        _write_at(cache["v"], at, v_new[:, 0])
-        k, v = cache["k"], cache["v"]
-    valid = torch.arange(max_len, device=x.device)[None, :] <= length[:, None]
-    o = _sdpa_plain(q, k, v, causal=False, kv_len_mask=valid)
-    x = x + o.reshape(b, 1, cfg.n_heads * cfg.head_dim) @ params["attn"]["wo"]
-    f, _ = _ffn(params, apply_norm(params["norm2"], x, cfg.norm), cfg)
+    with span("rt.attn"):
+        h = apply_norm(params["norm1"], x, cfg.norm)
+        positions = length[:, None]
+        q, k_new, v_new = _project_qkv(params["attn"], h, h, cfg.n_heads,
+                                       cfg.kv_heads, cfg.head_dim, positions,
+                                       positions, cfg.rope_theta)
+        max_len = cache["k"].shape[1]
+        at = length.clamp(max=max_len - 1)
+        if "k_scale" in cache:
+            for name, new in (("k", k_new), ("v", v_new)):
+                q_new, s_new = _quantize_kv(new)
+                _write_at(cache[name], at, q_new[:, 0])
+                _write_at(cache[f"{name}_scale"], at, s_new[:, 0])
+            k = _dequantize_kv(cache["k"], cache["k_scale"], x.dtype)
+            v = _dequantize_kv(cache["v"], cache["v_scale"], x.dtype)
+        else:
+            _write_at(cache["k"], at, k_new[:, 0])
+            _write_at(cache["v"], at, v_new[:, 0])
+            k, v = cache["k"], cache["v"]
+        valid = (torch.arange(max_len, device=x.device)[None, :]
+                 <= length[:, None])
+        o = _sdpa_plain(q, k, v, causal=False, kv_len_mask=valid)
+        x = x + o.reshape(b, 1, cfg.n_heads * cfg.head_dim) \
+            @ params["attn"]["wo"]
+    f, _ = _ffn(params, x, cfg)
     return x + f, cache
 
 

@@ -4,6 +4,32 @@ One ``decode_step`` advances all slots; admitting a request prefills it
 alone and copies its batch-1 cache into the slot's row of the batch
 cache, in place, so admission never disturbs the other slots. The
 engine runs where its model runs.
+
+Reading what the engine does. Its wall-clock totals are always kept
+(``ServeEngine``'s docstring lists them): take them before and after a
+stretch of serving, and their differences over the counts give the time
+per admission, per decode step and per part of a step, and the mean wait
+of a request in the queue. For where the time goes inside a call, turn
+the port's spans on around a ``torch.profiler`` run
+(:mod:`repro_torch.tracing`): the trace then holds ``rt.admit`` (with the
+request's uid), ``rt.readback`` and ``rt.sample`` here, ``rt.prefill`` /
+``rt.decode`` and the block spans inside the model, each over the device
+work it launched, and :func:`repro_torch.models.moe.read_moe_stats` gives
+the MoE dispatch's capacity rows against the pairs routed and taken::
+
+    from torch.profiler import profile
+    from repro_torch import tracing
+    from repro_torch.models import moe
+    moe.reset_moe_stats()
+    with profile() as prof:
+        tracing.enable()
+        try:
+            engine.run(queue, max_steps=50)
+        finally:
+            tracing.disable()
+    stats = moe.read_moe_stats()
+
+Off, the spans cost a boolean test each and the MoE counts nothing.
 """
 from __future__ import annotations
 
@@ -15,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.model import Model
+from repro_torch.tracing import span
 from repro_torch.serving.scheduler import Request, RequestQueue
 
 
@@ -49,7 +76,13 @@ class ServeEngine:
     It keeps wall-clock totals of its own work: ``prefill_s`` over
     ``n_prefills`` admissions and ``decode_s`` over ``decode_steps``
     steps. Each ends by reading logits back to the host, which waits for
-    the device, so the totals hold the device's time too.
+    the device, so the totals hold the device's time too. A step's time
+    is split three ways: ``decode_enqueue_s`` until ``Model.decode_step``
+    returns (the host queueing the step's work), ``decode_readback_s``
+    reading the logits back (the wait for the device and the copy), and
+    the rest, choosing the tokens and sending them to the device.
+    ``queue_wait_s`` sums, over the admissions, the time from a request's
+    ``RequestQueue.submit`` to the start of its admission.
     """
 
     def __init__(self, model: Model, params, *, n_slots: int = 4,
@@ -69,17 +102,23 @@ class ServeEngine:
         self.n_prefills = 0
         self.decode_s = 0.0
         self.decode_steps = 0
+        self.decode_enqueue_s = 0.0
+        self.decode_readback_s = 0.0
+        self.queue_wait_s = 0.0
 
     def _admit(self, req: Request, slot: int, queue_batch: Dict):
         """Prefill one prompt and copy its cache into ``slot``."""
         t0 = time.perf_counter()
-        prompt = torch.as_tensor(req.prompt, dtype=torch.long,
-                                 device=self.device)[None, :]
-        logits, slot_cache = self.model.prefill(
-            self.params, {"tokens": prompt, **queue_batch},
-            max_len=self.max_len)
-        _insert_slot(self.cache, slot_cache, slot, self.cache_axes)
-        tok = self._sample(logits[0, -1].cpu().numpy())
+        if req.submitted_at is not None:
+            self.queue_wait_s += t0 - req.submitted_at
+        with span("rt.admit", str(req.uid)):
+            prompt = torch.as_tensor(req.prompt, dtype=torch.long,
+                                     device=self.device)[None, :]
+            logits, slot_cache = self.model.prefill(
+                self.params, {"tokens": prompt, **queue_batch},
+                max_len=self.max_len)
+            _insert_slot(self.cache, slot_cache, slot, self.cache_axes)
+            tok = self._sample(logits[0, -1].cpu().numpy())
         self.prefill_s += time.perf_counter() - t0
         self.n_prefills += 1
         self.slots[slot] = req
@@ -127,21 +166,29 @@ class ServeEngine:
             t0 = time.perf_counter()
             logits, self.cache = self.model.decode_step(
                 self.params, self.cache, self.last_tokens)
-            lg = logits[:, 0].cpu().numpy()
+            t1 = time.perf_counter()
+            with span("rt.readback"):
+                lg = logits[:, 0].cpu().numpy()
+            t2 = time.perf_counter()
             steps += 1
             if step_duration_s is not None:
                 clock += step_duration_s
-            new_tokens = np.zeros((self.n_slots, 1), np.int64)
-            for slot, req in enumerate(self.slots):
-                if req is None:
-                    continue
-                tok = self._sample(lg[slot])
-                req.generated.append(tok)
-                new_tokens[slot, 0] = tok
-                if req.done:
-                    results.append(GenerationResult(req.uid, req.generated))
-                    self.slots[slot] = None
-            self.last_tokens = torch.from_numpy(new_tokens).to(self.device)
+            with span("rt.sample"):
+                new_tokens = np.zeros((self.n_slots, 1), np.int64)
+                for slot, req in enumerate(self.slots):
+                    if req is None:
+                        continue
+                    tok = self._sample(lg[slot])
+                    req.generated.append(tok)
+                    new_tokens[slot, 0] = tok
+                    if req.done:
+                        results.append(GenerationResult(req.uid,
+                                                        req.generated))
+                        self.slots[slot] = None
+                self.last_tokens = torch.from_numpy(new_tokens).to(
+                    self.device)
             self.decode_s += time.perf_counter() - t0
+            self.decode_enqueue_s += t1 - t0
+            self.decode_readback_s += t2 - t1
             self.decode_steps += 1
         return results

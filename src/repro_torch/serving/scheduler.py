@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import time
 from typing import Deque, List, Optional, Sequence
 
 import numpy as np
@@ -38,6 +39,10 @@ class Request:
     arrival: float = 0.0             # submission time (0 = immediately)
     # filled by the engine
     generated: List[int] = dataclasses.field(default_factory=list)
+    #: ``time.perf_counter()`` when ``RequestQueue.submit`` queued it (the
+    #: wall clock, where ``arrival`` is the logical one)
+    submitted_at: Optional[float] = dataclasses.field(default=None,
+                                                      compare=False)
 
     @property
     def done(self) -> bool:
@@ -58,7 +63,7 @@ class RequestQueue:
         req = Request(uid=self._next_uid, prompt=np.asarray(prompt,
                                                             np.int32),
                       max_new_tokens=max_new_tokens, eos_token=eos_token,
-                      arrival=arrival)
+                      arrival=arrival, submitted_at=time.perf_counter())
         self._next_uid += 1
         self._q.append(req)
         if len(self._q) > 1 and self._q[-2].arrival > arrival:
