@@ -35,14 +35,18 @@ Phases, in order; any failure exits non-zero:
      families, 8 requests each: full-size xlstm-350m, full-size
      whisper-tiny (one seeded (1, 1500, 384) frames input) and
      llama-3.2-vision-90b at full width with its depth cut to 20 layers
-     (one seeded (1, 1601, 8192) patches input, gates opened). Each of
-     these models also gives its parameter count, its peak memory, its
-     decode state per slot and a repeated 512-token prefill (448 for
-     whisper), equal bit for bit;
+     (one seeded (1, 1601, 8192) patches input, gates opened). Each
+     engine's decode step is one CUDA graph, captured once and replayed
+     on every step but the first, and its tokens must equal those of the
+     same requests served with the eager step. Each of these models also
+     gives its parameter count, its peak memory, its decode state per
+     slot and a repeated 512-token prefill (448 for whisper), equal bit
+     for bit;
   5. host wall time against device-busy time and kernel launches per
-     call (torch.profiler) for one decode step and one prefill of each
-     served model, and neither torch's cumsum nor the chunk recurrence's
-     stack left in the zamba2 prefill;
+     call (torch.profiler) for one eager decode step, one replay of the
+     engine's decode graph and one prefill of each served model, and
+     neither torch's cumsum nor the chunk recurrence's stack left in the
+     zamba2 prefill;
   6. training, through the plain paths (no kernel has a backward pass;
      none may launch): full-width, full-depth qwen3-0.6b in bf16 with
      remat "dots" at 8 x 512 tokens, whose loss must fall on a fixed
@@ -739,9 +743,9 @@ def moe_parity(arch):
 
 def serve_hybrid():
     """Full zamba2-1.2b serving 8 requests through the SSD kernels and
-    flash attention, then one full-width forward; returns (model, params,
-    engine, results, {kernel: launches while serving}, prompt lengths,
-    wall seconds)."""
+    flash attention (and again with the eager decode step), then one
+    full-width forward; returns (model, params, engine, results,
+    {kernel: launches while serving}, prompt lengths, wall seconds)."""
     cfg = get_config("zamba2-1.2b", attn_impl="kernel", use_ssm_kernel=True)
     model = Model(cfg)
     params = model.init(seed=0)
@@ -751,9 +755,10 @@ def serve_hybrid():
     # chunks (the reference's rule), so: 4 short prompts and 4 long ones
     lengths = [int(n) for n in rng.integers(16, 129, size=4)]
     lengths += [int(n) for n in rng.choice([256, 384, 512, 640], size=4)]
+    prompts = [rng.integers(0, cfg.vocab, size=n) for n in lengths]
     queue = RequestQueue()
-    for n in lengths:
-        queue.submit(rng.integers(0, cfg.vocab, size=n), max_new_tokens=32)
+    for prompt in prompts:
+        queue.submit(prompt, max_new_tokens=32)
     torch.cuda.synchronize()
     ssd_ops.intra_launches = ssd_ops.inter_launches = flash_ops.launches = 0
     t0 = time.perf_counter()
@@ -777,6 +782,8 @@ def serve_hybrid():
         check(launches[name] == per * engine.n_prefills,
               f"{name} launches {launches[name]} == {per} x "
               f"{engine.n_prefills} prefills")
+    graph_against_eager("zamba2-1.2b", model, params, engine, results,
+                        prompts)
 
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab, size=512),
                              device="cuda")[None]
@@ -791,6 +798,34 @@ def serve_hybrid():
           f"forward launches {got} == ({cfg.n_layers}, {cfg.n_layers}, "
           f"{n_apps})")
     return model, params, engine, results, launches, lengths, wall
+
+
+def graph_against_eager(name, model, params, engine, results, prompts,
+                        extra=None) -> float:
+    """``engine`` must have captured its decode step once and replayed it
+    on every step but the first, and served the tokens that the same
+    ``prompts`` (32 new tokens each) get from an engine whose decode step
+    runs eagerly (the engine's private seam). Returns the eager engine's
+    wall ms per decode step."""
+    check(engine.decode_graph_captures == 1 and engine.decode_graph_replays
+          == engine.decode_steps - 1,
+          f"{name}: one decode graph, replayed on {engine.decode_steps - 1} "
+          f"steps, got {engine.decode_graph_captures} captures and "
+          f"{engine.decode_graph_replays} replays")
+    eager = ServeEngine(model, params, n_slots=engine.n_slots,
+                        max_len=engine.max_len)
+    eager._graphable = False
+    queue = RequestQueue()
+    for prompt in prompts:
+        queue.submit(prompt, max_new_tokens=32)
+    want = {r.uid: r.tokens for r in eager.run(queue,
+                                               extra_inputs=extra or {})}
+    check({r.uid: r.tokens for r in results} == want,
+          f"{name}: the decode graph serves the eager step's tokens")
+    ms = eager.decode_s / eager.decode_steps * 1e3
+    del eager
+    torch.cuda.empty_cache()
+    return ms
 
 
 def state_bytes(cache) -> int:
@@ -847,7 +882,9 @@ def print_serving(name, engine, results, lengths, wall, launches):
           f"{sorted(lengths)}, {n_tokens} tokens in {wall:.3f} s: prefill "
           f"{engine.prefill_s / engine.n_prefills * 1e3:.3f} ms per request, "
           f"decode {engine.decode_s / engine.decode_steps * 1e3:.3f} ms per "
-          f"step ({engine.decode_steps} steps, {engine.n_slots} slots), "
+          f"step ({engine.decode_steps} steps, {engine.n_slots} slots; "
+          f"{engine.decode_graph_captures} decode graph, "
+          f"{engine.decode_graph_replays} replays), "
           f"{n_tokens / busy:.1f} tokens/s; launches {launches}")
 
 
@@ -897,10 +934,11 @@ def profile_call(name, fn, kernels, n: int = PROFILE_CALLS):
 
 
 def where_time_goes(model, params, engine, kernels, extra=None):
-    """``profile_call`` for one decode step of the 4-slot batch and one
-    prefill of 512 tokens (PROFILE_PROMPT's length where it names the
-    model), warm, as the main path runs them; over 2 calls for xLSTM,
-    whose sLSTM prefill launches tens of thousands of kernels. Returns
+    """``profile_call`` for one eager decode step of the 4-slot batch, one
+    replay of the engine's decode graph and one prefill of 512 tokens
+    (PROFILE_PROMPT's length where it names the model), warm, as the
+    main path runs them; over 2 calls for xLSTM, whose sLSTM prefill
+    launches tens of thousands of kernels. Returns
     {call: (its kernel rows, longest first, kernel launches per call,
     wall ms, device-busy ms)}."""
     cfg = model.cfg
@@ -909,6 +947,7 @@ def where_time_goes(model, params, engine, kernels, extra=None):
     calls = {
         "decode step, 4 slots": lambda: model.decode_step(
             params, engine.cache, engine.last_tokens),
+        "decode graph replay, 4 slots": engine._graph.replay,
         f"prefill, {s} tokens": lambda: model.prefill(
             params, {"tokens": prompt, **(extra or {})},
             max_len=engine.max_len)}
@@ -1027,9 +1066,11 @@ def serve_model(arch):
     serving 8 requests of 32 new tokens through ServeEngine(n_slots=4,
     max_len=1024), every causal prefill through flash attention, one
     seeded stub input (batch 1) given to every request as
-    ``extra_inputs``. Full depth, but the vision model at VLM_LAYERS. Its
-    parameter count against cfg.n_params(), peak memory after init and
-    after serving, decode state per slot, and one prefill of 512 tokens
+    ``extra_inputs``. Full depth, but the vision model at VLM_LAYERS.
+    The same requests served again with the eager decode step give the
+    same tokens (:func:`graph_against_eager`). Its parameter count
+    against cfg.n_params(), peak memory after init and after serving,
+    decode state per slot, and one prefill of 512 tokens
     (PROFILE_PROMPT's length where it names the model) run twice, whose
     logits and cache must be equal bit for bit. Returns (model, params,
     engine, results, flash launches while serving, prompt lengths, wall
@@ -1064,9 +1105,10 @@ def serve_model(arch):
         lengths = [int(n) for n in rng.integers(16, top, size=8)]
     check(any(n % 64 for n in lengths), "a ragged prompt length")
     extra = stub_input(cfg, 1, 11, "cuda")
+    prompts = [rng.integers(0, cfg.vocab, size=n) for n in lengths]
     queue = RequestQueue()
-    for n in lengths:
-        queue.submit(rng.integers(0, cfg.vocab, size=n), max_new_tokens=32)
+    for prompt in prompts:
+        queue.submit(prompt, max_new_tokens=32)
     torch.cuda.synchronize()
     flash_ops.launches = 0
     t0 = time.perf_counter()
@@ -1087,6 +1129,8 @@ def serve_model(arch):
           f"{engine.n_prefills} prefills")
     serve_peak = torch.cuda.max_memory_allocated() - base
     per_slot = state_bytes(engine.cache) // engine.n_slots
+    eager_ms = graph_against_eager(arch, model, params, engine, results,
+                                   prompts, extra)
     s = PROFILE_PROMPT.get(arch, 512)
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab, size=s),
                              device="cuda")[None]
@@ -1104,7 +1148,9 @@ def serve_model(arch):
                    layers=cfg.n_layers, init_s=init_s,
                    init_peak_bytes=init_peak, resident_bytes=resident,
                    serve_peak_bytes=serve_peak, state_bytes_per_slot=per_slot,
-                   flash_per_prefill=per, repeated_prefill_equal=True)
+                   flash_per_prefill=per, repeated_prefill_equal=True,
+                   decode_graph_replays=engine.decode_graph_replays,
+                   eager_decode_step_ms=eager_ms)
     cut = (f" (depth cut from 100: the full model's 87,666,794,536 "
            f"parameters, about 175 GB in bf16, do not fit one 80 GB card)"
            if arch.startswith("llama") else "")

@@ -5,6 +5,15 @@ alone and copies its batch-1 cache into the slot's row of the batch
 cache, in place, so admission never disturbs the other slots. The
 engine runs where its model runs.
 
+The engine keeps one cache and one tensor of last tokens for its whole
+life and writes both in place, so a decode step always reads and writes
+the same storage at the same shapes. On a CUDA device that makes the
+step one CUDA graph: the engine runs all its device work on a stream of
+its own, its first decode step eagerly (the warm-up a capture needs),
+the second is captured there and replayed, and every later step is one
+replay in place of the step's thousands of launches. Elsewhere the step
+runs eagerly.
+
 Reading what the engine does. Its wall-clock totals are always kept
 (``ServeEngine``'s docstring lists them): take them before and after a
 stretch of serving, and their differences over the counts give the time
@@ -30,6 +39,11 @@ the MoE dispatch's capacity rows against the pairs routed and taken::
     stats = moe.read_moe_stats()
 
 Off, the spans cost a boolean test each and the MoE counts nothing.
+While tracing is on the engine runs the decode step eagerly, never the
+graph: the model's ``rt.*`` spans and the MoE counters run on the host
+as the step is enqueued, so a replay would record neither. The traced
+steps are the same work on the same cache, and the graph serves again
+once tracing is off.
 """
 from __future__ import annotations
 
@@ -40,6 +54,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.models.model import Model
 from repro_torch.tracing import span
 from repro_torch.serving.scheduler import Request, RequestQueue
@@ -78,11 +93,15 @@ class ServeEngine:
     steps. Each ends by reading logits back to the host, which waits for
     the device, so the totals hold the device's time too. A step's time
     is split three ways: ``decode_enqueue_s`` until ``Model.decode_step``
-    returns (the host queueing the step's work), ``decode_readback_s``
-    reading the logits back (the wait for the device and the copy), and
-    the rest, choosing the tokens and sending them to the device.
+    or the graph's replay returns (the host queueing the step's work),
+    ``decode_readback_s`` reading the logits back (the wait for the
+    device and the copy), and the rest, choosing the tokens and sending
+    them to the device.
     ``queue_wait_s`` sums, over the admissions, the time from a request's
-    ``RequestQueue.submit`` to the start of its admission.
+    ``RequestQueue.submit`` to the start of its admission. Where the step
+    is a CUDA graph, enqueueing it is one replay: ``decode_graph_captures``
+    counts the captures (one per engine) and ``decode_graph_replays`` the
+    steps that ran as a replay (all but the first, while tracing is off).
     """
 
     def __init__(self, model: Model, params, *, n_slots: int = 4,
@@ -105,6 +124,16 @@ class ServeEngine:
         self.decode_enqueue_s = 0.0
         self.decode_readback_s = 0.0
         self.queue_wait_s = 0.0
+        self.decode_graph_captures = 0
+        self.decode_graph_replays = 0
+        # on a CUDA device: the engine's own stream, where its decode step
+        # is warmed up and captured, and the graph with its output logits
+        self._graphable = self.device.type == "cuda"
+        self._stream = torch.cuda.Stream(self.device) \
+            if self._graphable else None
+        self._warm = False
+        self._graph = None
+        self._graph_logits = None
 
     def _admit(self, req: Request, slot: int, queue_batch: Dict):
         """Prefill one prompt and copy its cache into ``slot``."""
@@ -125,6 +154,39 @@ class ServeEngine:
         req.generated.append(tok)
         self.last_tokens[slot, 0] = tok
 
+    def _step(self) -> torch.Tensor:
+        """The eager decode step: enqueue it and advance the cache's
+        lengths in place (``Model.decode_step`` writes the other leaves in
+        place and returns the lengths anew); returns the logits (n_slots,
+        1, vocab)."""
+        logits, out = self.model.decode_step(self.params, self.cache,
+                                             self.last_tokens)
+        self.cache["length"].copy_(out["length"])
+        return logits
+
+    def _decode(self) -> torch.Tensor:
+        """Enqueue one decode step of every slot; returns its logits.
+
+        On a CUDA device with tracing off the first step runs eagerly,
+        the second captures the step on the engine's stream (through
+        ``self.model.decode_step``, as the eager step calls it, into a
+        graph with a private memory pool) and every step replays it.
+        Capturing runs nothing, so no step is done twice."""
+        if not self._graphable or tracing.enabled():
+            return self._step()
+        if self._graph is None:
+            if not self._warm:
+                self._warm = True
+                return self._step()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=self._stream):
+                self._graph_logits = self._step()
+            self._graph = graph
+            self.decode_graph_captures += 1
+        self._graph.replay()
+        self.decode_graph_replays += 1
+        return self._graph_logits
+
     def _sample(self, logits: np.ndarray) -> int:
         if self.temperature <= 0.0:
             return int(np.argmax(logits))
@@ -143,7 +205,21 @@ class ServeEngine:
         idles forward to the next arrival when the batch drains early."""
         if step_duration_s is not None and step_duration_s <= 0.0:
             raise ValueError("step_duration_s must be positive")
-        extra_inputs = extra_inputs or {}
+        args = (queue, extra_inputs or {}, max_steps, step_duration_s)
+        if self._stream is None:
+            return self._run(*args)
+        # the engine's stream follows the caller's work and the caller's
+        # stream follows the engine's
+        caller = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(caller)
+        try:
+            with torch.cuda.stream(self._stream):
+                return self._run(*args)
+        finally:
+            caller.wait_stream(self._stream)
+
+    def _run(self, queue: RequestQueue, extra_inputs: Dict, max_steps: int,
+             step_duration_s: Optional[float]) -> List[GenerationResult]:
         results: List[GenerationResult] = []
         steps = 0
         clock = 0.0
@@ -164,8 +240,7 @@ class ServeEngine:
                     continue
                 break
             t0 = time.perf_counter()
-            logits, self.cache = self.model.decode_step(
-                self.params, self.cache, self.last_tokens)
+            logits = self._decode()
             t1 = time.perf_counter()
             with span("rt.readback"):
                 lg = logits[:, 0].cpu().numpy()
@@ -185,8 +260,7 @@ class ServeEngine:
                         results.append(GenerationResult(req.uid,
                                                         req.generated))
                         self.slots[slot] = None
-                self.last_tokens = torch.from_numpy(new_tokens).to(
-                    self.device)
+                self.last_tokens.copy_(torch.from_numpy(new_tokens))
             self.decode_s += time.perf_counter() - t0
             self.decode_enqueue_s += t1 - t0
             self.decode_readback_s += t2 - t1

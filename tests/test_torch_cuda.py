@@ -504,6 +504,118 @@ def test_reduced_new_family_on_the_card_matches_cpu(cuda, arch, impl):
 
 
 # --------------------------------------------------------------------------
+# the serving engine's decode step as one CUDA graph
+# --------------------------------------------------------------------------
+
+#: (prompt length, new tokens) of the requests served two slots at a time,
+#: so requests are admitted between replays
+GRAPH_QUEUE = ((9, 5), (16, 12), (4, 3), (12, 7), (7, 9))
+#: reduced models, one of each decode path; the attention families'
+#: prefills run the flash kernel, zamba2's the SSD kernels too
+GRAPH_ARCHS = {"granite-moe-3b-a800m": dict(attn_impl="kernel"),
+               "qwen3-0.6b": dict(attn_impl="kernel"),
+               "zamba2-1.2b": dict(attn_impl="kernel", use_ssm_kernel=True),
+               "xlstm-350m": {}}
+
+
+def _engine_model(cuda, arch):
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.model import Model
+    model = Model(reduced_config(arch, **GRAPH_ARCHS[arch]), device=cuda)
+    return model, model.init(seed=0)
+
+
+def _serve(model, params, *, graph: bool, n_slots: int = 2,
+           max_len: int = 64, max_steps: int = 10_000, queue=None):
+    """An engine serving GRAPH_QUEUE, its decode step a CUDA graph or (the
+    private seam) eager. Returns (engine, requests, queue, every logit row
+    the engine sampled from)."""
+    from repro_torch.serving import RequestQueue, ServeEngine
+    eng = ServeEngine(model, params, n_slots=n_slots, max_len=max_len)
+    eng._graphable = graph
+    rows = []
+    sample = eng._sample
+    eng._sample = lambda lg: (rows.append(lg.copy()), sample(lg))[1]
+    rng = np.random.default_rng(9)
+    q = RequestQueue()
+    reqs = [q.submit(rng.integers(0, model.cfg.vocab, size=n),
+                     max_new_tokens=new) for n, new in GRAPH_QUEUE]
+    eng.run(q, max_steps=max_steps)
+    torch.cuda.synchronize()
+    return eng, reqs, q, rows
+
+
+@pytest.mark.parametrize("arch", sorted(GRAPH_ARCHS))
+def test_decode_graph_serves_what_the_eager_step_serves(cuda, arch):
+    """The engine's decode step captured once and replayed, with requests
+    admitted between replays, gives the eager step's tokens, logits and
+    final cache bit for bit; one capture, and every step but the warm-up
+    is a replay."""
+    from repro_torch.models.transformer import tree_leaves
+    model, params = _engine_model(cuda, arch)
+    got = _serve(model, params, graph=True)
+    want = _serve(model, params, graph=False)
+    (eng, reqs, _, rows), (ref, ref_reqs, _, ref_rows) = got, want
+    assert [r.generated for r in reqs] == [r.generated for r in ref_reqs]
+    assert all(len(r.generated) == r.max_new_tokens for r in reqs)
+    assert len(rows) == len(ref_rows)
+    assert all(np.array_equal(a, b) for a, b in zip(rows, ref_rows))
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(eng.cache),
+                                                 tree_leaves(ref.cache)))
+    assert eng.decode_steps == ref.decode_steps > 2
+    assert eng.decode_graph_captures == 1
+    assert eng.decode_graph_replays == eng.decode_steps - 1
+    assert ref.decode_graph_captures == ref.decode_graph_replays == 0
+
+
+def test_decode_graph_steps_aside_while_tracing(cuda):
+    """With the port's tracing on the engine runs the eager step: no
+    replay, and the MoE counters count what an eager engine's count over
+    the same steps."""
+    from repro_torch import tracing
+    from repro_torch.models import moe
+    model, params = _engine_model(cuda, "granite-moe-3b-a800m")
+    runs = []
+    for graph in (True, False):
+        # three steps untraced: the warm-up, the capture and a replay
+        eng, reqs, q, _ = _serve(model, params, graph=graph, max_steps=3)
+        replays = eng.decode_graph_replays
+        moe.reset_moe_stats()
+        tracing.enable()
+        try:
+            eng.run(q)
+        finally:
+            tracing.disable()
+        torch.cuda.synchronize()
+        runs.append((eng, replays, moe.read_moe_stats(),
+                     [r.generated for r in reqs]))
+    (eng, replays, stats, tokens), (_, _, ref_stats, ref_tokens) = runs
+    assert eng.decode_graph_captures == 1 and replays == 2
+    assert eng.decode_graph_replays == replays
+    assert stats == ref_stats and stats["decode"]["capacity_rows"] > 0
+    assert tokens == ref_tokens
+
+
+def test_decode_graph_keeps_the_memory_peak(cuda):
+    """The graph's private pool holds the step's own working set: the
+    peak of the memory an engine adds while serving (its cache, and the
+    cuBLAS workspace of its stream, included) is the eager engine's,
+    within 1 %."""
+    model, params = _engine_model(cuda, "granite-moe-3b-a800m")
+    peaks = {}
+    for graph in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        eng = _serve(model, params, graph=graph, n_slots=4, max_len=1024)[0]
+        peaks[graph] = torch.cuda.max_memory_allocated() - base
+        assert eng.decode_graph_captures == int(graph)
+        del eng
+    assert abs(peaks[True] - peaks[False]) <= 0.01 * peaks[False], peaks
+
+
+# --------------------------------------------------------------------------
 # distribution: the sharded train step on a one-rank NCCL mesh
 # --------------------------------------------------------------------------
 

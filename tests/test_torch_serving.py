@@ -122,3 +122,42 @@ def test_engine_greedy_tokens_match_reference_engine(arch):
     want = RefEngine(ref_model, ref_params, n_slots=2, max_len=32).run(ref_q)
     got = ServeEngine(model, params, n_slots=2, max_len=32).run(port_q)
     assert {r.uid: r.tokens for r in got} == {r.uid: r.tokens for r in want}
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "granite-moe-3b-a800m",
+                                  "zamba2-1.2b", "xlstm-350m"])
+def test_engine_decodes_in_place(arch):
+    """Across decode steps and admissions the engine keeps one cache dict
+    whose leaves (``length`` included) and whose ``last_tokens`` keep
+    their storage, and ``length`` counts each occupied slot's tokens: the
+    step reads and writes the same tensors every time, as a CUDA graph of
+    it must. On the CPU the step runs eagerly: nothing is captured or
+    replayed."""
+    from repro_torch.models.transformer import tree_leaves
+    model, params = _model(arch)
+    eng = ServeEngine(model, params, n_slots=2, max_len=48)
+    cache = eng.cache
+    ptrs = [t.data_ptr() for t in tree_leaves(cache)]
+    tokens_ptr = eng.last_tokens.data_ptr()
+    q = RequestQueue()
+    rng = np.random.default_rng(4)
+    reqs = [q.submit(rng.integers(0, model.cfg.vocab, size=n),
+                     max_new_tokens=new)
+            for n, new in ((6, 4), (9, 7), (3, 3), (12, 5))]
+    admitted = set()
+    while q or any(s is not None for s in eng.slots):
+        eng.run(q, max_steps=1)
+        assert eng.cache is cache
+        assert [t.data_ptr() for t in tree_leaves(eng.cache)] == ptrs
+        assert eng.last_tokens.data_ptr() == tokens_ptr
+        for slot, req in enumerate(eng.slots):
+            if req is None:
+                continue
+            admitted.add(req.uid)
+            assert int(cache["length"][slot]) == \
+                len(req.prompt) + len(req.generated) - 1
+            assert int(eng.last_tokens[slot, 0]) == req.generated[-1]
+    assert admitted == {r.uid for r in reqs}
+    assert all(len(r.generated) == r.max_new_tokens for r in reqs)
+    assert eng.decode_steps > 0
+    assert eng.decode_graph_captures == eng.decode_graph_replays == 0
