@@ -29,7 +29,9 @@ Phases, in order; any failure exits non-zero:
      full-width, full-depth zamba2-1.2b in bf16 serving 8 requests (every
      Mamba2 prefill through the two SSD kernels, the shared attention
      block through flash attention), then one full-width zamba2 forward,
-     the reference's own kernel route; full-width, full-depth
+     the reference's own kernel route; full-width granite-4.0-h-small
+     (family hybrid_moe) at one period of its layers (10) serving 8
+     requests of prompts padded to whole chunks; full-width, full-depth
      qwen2-moe-a2.7b and then granite-moe-3b-a800m in bf16 serving 8
      requests each, and granite's int8 KV cache; then the last three
      families, 8 requests each: full-size xlstm-350m, full-size
@@ -480,27 +482,30 @@ def randn(gen, shape, dtype):
 # phase 2: kernels against their plain versions
 # --------------------------------------------------------------------------
 
-def check_flash(gen, b, s, h, hkv, d, dtype):
+def check_flash(gen, b, s, h, hkv, d, dtype, scale=None):
+    """One flash shape against the plain version, timed; ``scale`` the
+    scores' (None: d^-1/2), the library's timed at the same scale."""
     q = randn(gen, (b, s, h, d), dtype)
     k = randn(gen, (b, s, hkv, d), dtype)
     v = randn(gen, (b, s, hkv, d), dtype)
-    out = flash_attention_cuda(q, k, v)
+    out = flash_attention_cuda(q, k, v, scale=scale)
     torch.cuda.synchronize()
-    err = max_err(out, attention_ref(q, k, v), **TOL[dtype],
+    err = max_err(out, attention_ref(q, k, v, scale=scale), **TOL[dtype],
                   what=f"flash attention b={b} s={s} h={h}/{hkv} d={d}")
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     size = q.element_size()
     ms_bound, bound_by = bound(4 * d * b * h * s * (s + 1) / 2,
                                size * b * s * d * (2 * h + 2 * hkv), dtype)
+    at = "" if scale is None else f" scale={scale:g}"
     return dict(
-        shape=f"b={b} s={s} h={h} hkv={hkv} d={d} {str(dtype)[6:]}",
+        shape=f"b={b} s={s} h={h} hkv={hkv} d={d}{at} {str(dtype)[6:]}",
         route=("mma.sync bf16" if dtype == torch.bfloat16
                else "scalar fp32"),
         max_abs_err=err,
-        ms=time_ms(lambda: flash_attention_cuda(q, k, v)),
-        plain_ms=time_ms(lambda: attention_ref(q, k, v)),
+        ms=time_ms(lambda: flash_attention_cuda(q, k, v, scale=scale)),
+        plain_ms=time_ms(lambda: attention_ref(q, k, v, scale=scale)),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)),
+            qt, kt, vt, is_causal=True, enable_gqa=True, scale=scale)),
         bound_ms=ms_bound, bound_by=bound_by)
 
 
@@ -798,6 +803,64 @@ def serve_hybrid():
           f"forward launches {got} == ({cfg.n_layers}, {cfg.n_layers}, "
           f"{n_apps})")
     return model, params, engine, results, launches, lengths, wall
+
+
+#: granite-4.0-h-small served at full width and one whole period of its
+#: layer pattern (9 Mamba2 layers, attention at layer 5)
+HYBRID_MOE_LAYERS = 10
+
+
+def serve_hybrid_moe():
+    """Full-width granite-4.0-h-small (family hybrid_moe) cut to
+    HYBRID_MOE_LAYERS layers serving 8 requests whose prompts are no whole
+    number of chunks (padded for the scan) through the SSD kernels and
+    flash attention at its scale, in 4 slots; the decode graph against
+    the eager step. Returns (engine, results, {kernel: launches}, prompt
+    lengths, wall seconds, the padded share of the scanned positions)."""
+    from repro_torch.models import mamba2 as m2
+    cfg = get_config("granite-4.0-h-small", n_layers=HYBRID_MOE_LAYERS,
+                     attn_impl="kernel", use_ssm_kernel=True)
+    model = Model(cfg)
+    params = model.init(seed=0)
+    engine = ServeEngine(model, params, n_slots=4, max_len=1024)
+    rng = np.random.default_rng(7)
+    lengths = [int(n) for n in rng.integers(16, 129, size=4)]
+    lengths += [int(n) for n in rng.integers(129, 900, size=4)]
+    prompts = [rng.integers(0, cfg.vocab, size=n) for n in lengths]
+    queue = RequestQueue()
+    for prompt in prompts:
+        queue.submit(prompt, max_new_tokens=32)
+    torch.cuda.synchronize()
+    ssd_ops.intra_launches = ssd_ops.inter_launches = flash_ops.launches = 0
+    real, pad = m2.ssd_real_tokens, m2.ssd_pad_tokens
+    t0 = time.perf_counter()
+    results = engine.run(queue)
+    wall = time.perf_counter() - t0
+    real, pad = m2.ssd_real_tokens - real, m2.ssd_pad_tokens - pad
+    launches = {"ssd_intra": ssd_ops.intra_launches,
+                "ssd_inter": ssd_ops.inter_launches,
+                "flash_attention": flash_ops.launches}
+    check(len(results) == 8 and all(len(r.tokens) == 32 for r in results),
+          "granite-4.0-h-small: 8 requests of 32 tokens")
+    for part in ("mamba", "attn"):
+        for name, t in engine.cache[part].items():
+            check(bool(torch.isfinite(t).all()),
+                  f"granite-4.0-h-small: finite cache {part}/{name}")
+    kinds = model._mixer_kinds()
+    for name, per in (("ssd_intra", kinds.count("mamba")),
+                      ("ssd_inter", kinds.count("mamba")),
+                      ("flash_attention", kinds.count("attn"))):
+        check(launches[name] == per * engine.n_prefills,
+              f"granite-4.0-h-small: {name} launches {launches[name]} == "
+              f"{per} x {engine.n_prefills} prefills")
+    want_pad = sum(-(-n // 128) * 128 - n for n in lengths if n > 128)
+    check((real, pad) == (kinds.count("mamba") * sum(lengths),
+                          kinds.count("mamba") * want_pad),
+          f"granite-4.0-h-small: scanned {real} real and {pad} padded "
+          f"positions")
+    graph_against_eager("granite-4.0-h-small", model, params, engine,
+                        results, prompts)
+    return engine, results, launches, lengths, wall, pad / (real + pad)
 
 
 def graph_against_eager(name, model, params, engine, results, prompts,
@@ -2761,6 +2824,9 @@ def main() -> int:
     flash_new = [check_flash(gen, 1, 448, 6, 6, 64, torch.bfloat16),
                  check_flash(gen, 1, 512, 64, 8, 128, torch.bfloat16)]
     flash_rows += flash_new
+    # granite-4.0-h's attention layers: 32/8, d = 128, scaled by 1/128
+    flash_rows += [check_flash(gen, 1, s, 32, 8, 128, torch.bfloat16,
+                               scale=1 / 128) for s in (512, 1024)]
     flash_f32 = [check_flash(gen, 1, 512, 16, 8, 128, torch.float32),
                  check_flash(gen, 1, 512, 32, 32, 64, torch.float32)]
     print_rows("flash_attention", flash_rows)
@@ -2775,6 +2841,9 @@ def main() -> int:
     # reference's sweep (tests/test_kernels.py) in both types
     ssd_rows = [check_ssd(gen, 1, 512, 64, 64, 64, 128, dtype)
                 for dtype in (torch.bfloat16, torch.float32)]
+    # granite-4.0-h's Mamba2 (128 heads, state 128) over 8 chunks
+    ssd_rows += [check_ssd(gen, 1, 1024, 128, 64, 128, 128, dtype)
+                 for dtype in (torch.bfloat16, torch.float32)]
     ssd_rows += [check_ssd(gen, *shape, dtype)
                  for shape in ((1, 77, 64, 64, 64, 128),
                                (2, 128, 4, 32, 16, 32),
@@ -2853,6 +2922,14 @@ def main() -> int:
           f"launches per call); cat kernel launches per call: "
           f"{sorted(count for count, _ in cats)}")
     del model, params, engine, traces, prefill_rows
+    torch.cuda.empty_cache()
+
+    (engine, results, launches, lengths, wall, pad_share) = \
+        serve_hybrid_moe()
+    print_serving(f"granite-4.0-h-small ({HYBRID_MOE_LAYERS} layers)",
+                  engine, results, lengths, wall, launches)
+    print(f"  the scan padded {pad_share:.1%} of the positions it ran on")
+    del engine, results
     torch.cuda.empty_cache()
 
     moe_launches = {}

@@ -3,6 +3,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -27,11 +28,13 @@ def _fn():
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True) -> torch.Tensor:
+                         *, causal: bool = True,
+                         scale: Optional[float] = None) -> torch.Tensor:
     """q: (b, sq, h, d); k/v: (b, skv, hkv, d), any strides with head_dim
     contiguous (in bf16, rows on 16-byte boundaries). Returns a contiguous
     (b, sq, h, d) tensor of q's type. float32 runs the scalar route,
-    bfloat16 the tensor-core route."""
+    bfloat16 the tensor-core route. The scores are scaled by ``scale``
+    (None: d^-1/2) in fp32 inside the kernel, never in q's type."""
     b, sq, h, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -59,7 +62,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                       for s in t.stride()[:3]])
     err = _fn()(_DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), o.data_ptr(), b, sq, skv, h, hkv, strides,
-                d ** -0.5, int(causal),
+                d ** -0.5 if scale is None else scale, int(causal),
                 torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash attention launch failed: CUDA error {err}")

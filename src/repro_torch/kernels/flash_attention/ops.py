@@ -1,6 +1,8 @@
 """Public flash attention: (b, s, h, d) layout, kernel or plain version."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import (PLAIN_DEVICES, refuse_autograd,
@@ -13,10 +15,13 @@ launches = 0
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True,
+                    scale: Optional[float] = None) -> torch.Tensor:
     """Causal GQA flash attention.
 
-    q: (b, sq, h, d); k/v: (b, skv, hkv, d); returns (b, sq, h, d).
+    q: (b, sq, h, d); k/v: (b, skv, hkv, d); returns (b, sq, h, d). The
+    scores are scaled by ``scale`` (None: d^-1/2, as before the argument
+    existed).
     A CUDA tensor goes through the CUDA kernel (or the call raises); a
     CPU tensor through the plain version, and so does a meta tensor (the
     dry run's), which has no data, so nothing is hidden. Refuses autograd
@@ -26,7 +31,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     refuse_autograd("flash_attention", q, k, v)
     refuse_dtensor("flash_attention", q, k, v)
     if q.device.type in PLAIN_DEVICES:
-        return attention_ref(q, k, v, causal=causal)
-    out = flash_attention_cuda(q, k, v, causal=causal)
+        return attention_ref(q, k, v, causal=causal, scale=scale)
+    out = flash_attention_cuda(q, k, v, causal=causal, scale=scale)
     launches += 1
     return out

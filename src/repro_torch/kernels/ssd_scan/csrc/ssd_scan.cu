@@ -555,10 +555,12 @@ constexpr int H_PARTS = 2;
 // Shared-memory layout of one inter block: a ring of STAGES chunk tiles,
 // then the state and (bf16 route) its parts and the y tile. Every row
 // pitch is a multiple of 16 bytes and staggers the rows across banks.
+// the dynamic shared memory a block may have on sm_90
+constexpr int SMEM_MAX = 227 * 1024;
+
 template <typename T, int N, int P>
 struct Inter {
   static constexpr bool MMA = sizeof(T) == 2;        // the bf16 route
-  static constexpr int STAGES = 2;                   // chunks in the ring
   static constexpr int PT = P < 32 ? P : 32;         // head_dim per block
   static constexpr int NP = MMA && N < 16 ? 16 : N;  // n padded to mma depth
   static constexpr int LDC = MMA ? NP + 8 : N + 4;   // C rows (elements)
@@ -571,10 +573,19 @@ struct Inter {
   static constexpr int CUM_OFF = S_OFF + N * LDS * 4;
   static constexpr int DEC_OFF = CUM_OFF + Q_MAX * 4;
   static constexpr int STAGE = DEC_OFF + 16;
+  // the state, its bf16 parts and the y tile, after the ring
+  static constexpr int TAIL = NP * LDS * 4 +
+                              (MMA ? H_PARTS * NP * LDB * 2 + Q_MAX * LDB * 2
+                                   : 0);
+  // chunks in the ring: two where they fit beside the tail; one at
+  // (n, p) = (128, 64) in fp32, whose two stages would pass SMEM_MAX by
+  // 32 bytes (each chunk then loads after the last has been used)
+  static constexpr int STAGES = 2 * STAGE + TAIL <= SMEM_MAX ? 2 : 1;
   static constexpr int H_OFF = STAGES * STAGE;
   static constexpr int HB_OFF = H_OFF + NP * LDS * 4;
   static constexpr int OUT_OFF = HB_OFF + (MMA ? H_PARTS * NP * LDB * 2 : 0);
   static constexpr int SMEM = OUT_OFF + (MMA ? Q_MAX * LDB * 2 : 0);
+  static_assert(SMEM <= SMEM_MAX, "the inter block's tiles do not fit");
 };
 
 // Start the copies of chunk ck's tiles (ck = batch * chunks + chunk) into
@@ -869,8 +880,11 @@ cudaError_t launch_inter(const void* cm, const void* cum, const void* s_chunk,
 }
 
 // The (n, p) pairs built: the reference's test sweep (8, 16) and (16, 32),
-// which is also the reduced config's, and the full width (64, 64).
-#define SSD_SHAPES(X) X(8, 16) X(16, 32) X(64, 64)
+// which is also the reduced config's, zamba2's full width (64, 64) and
+// granite-4.0-h's (128, 64). At (128, 64) the intra pass stages 88 KB in
+// bf16 and 227 KB (all a block may have) in fp32; the inter pass 193 KB
+// in bf16 and, with one stage, 123 KB in fp32.
+#define SSD_SHAPES(X) X(8, 16) X(16, 32) X(64, 64) X(128, 64)
 
 template <typename T>
 cudaError_t inter_by_shape(int n, int p, const void* cm, const void* cum,

@@ -10,7 +10,7 @@ import torch
 from repro_torch.kernels import _build
 
 #: (state n, head_dim p) pairs the kernels are built for
-SHAPES = ((8, 16), (16, 32), (64, 64))
+SHAPES = ((8, 16), (16, 32), (64, 64), (128, 64))
 #: longest chunk q a block holds
 Q_MAX = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}

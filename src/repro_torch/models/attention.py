@@ -106,14 +106,22 @@ _BHQK = ("b", "h", None, None)
 _BHGQK = ("b", "h", None, None, None)
 
 
+def _scale_scores(scores: torch.Tensor, d: int,
+                  scale: Optional[float]) -> torch.Tensor:
+    """fp32 scores over d^1/2, or times ``scale`` where one is given."""
+    return scores / (d ** 0.5) if scale is None else scores * scale
+
+
 def _sdpa_plain(q, k, v, *, causal: bool, q_offset: int = 0,
-                kv_len_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                kv_len_mask: Optional[torch.Tensor] = None,
+                scale: Optional[float] = None) -> torch.Tensor:
     """q: (b, sq, h, d); k/v: (b, skv, hkv, d) with GQA head grouping.
 
     Probabilities are cast to q's type before the PV product, as in the
-    reference. Without GQA groups the scores and probabilities are pinned
-    by logical axes: over heads where they divide the model axis, else
-    over the query sequence.
+    reference. The fp32 scores are scaled by ``scale`` (None: d^-1/2).
+    Without GQA groups the scores and probabilities are pinned by logical
+    axes: over heads where they divide the model axis, else over the
+    query sequence.
     """
     # imported here: repro_torch.distributed imports the training code,
     # which imports this module
@@ -132,8 +140,8 @@ def _sdpa_plain(q, k, v, *, causal: bool, q_offset: int = 0,
         hkv, group = h, 1
     if group == 1:
         score_axes = ("batch", "heads_act", "act_seq", None)
-        scores = per_shard(lambda q, k: torch.einsum(
-            "bqhd,bkhd->bhqk", q, k).float() / (d ** 0.5), (q, k),
+        scores = per_shard(lambda q, k: _scale_scores(torch.einsum(
+            "bqhd,bkhd->bhqk", q, k).float(), d, scale), (q, k),
             (_BSHD, _BSHD), _BHQK)
         scores = constrain(scores, score_axes)
         if causal:
@@ -147,9 +155,9 @@ def _sdpa_plain(q, k, v, *, causal: bool, q_offset: int = 0,
         return per_shard(lambda p, v: torch.einsum("bhqk,bkhd->bqhd", p, v),
                          (probs, v), (_BHQK, _BSHD), _BSHD)
     # the query heads grouped by their kv head: (b, sq, hkv, group, d)
-    scores = per_shard(lambda q, k: torch.einsum(
+    scores = per_shard(lambda q, k: _scale_scores(torch.einsum(
         "bqhgd,bkhd->bhgqk", q.reshape(*q.shape[:2], k.shape[2], group, d),
-        k).float() / (d ** 0.5), (q, k), (_BSHD, _BSHD), _BHGQK)
+        k).float(), d, scale), (q, k), (_BSHD, _BSHD), _BHGQK)
     if causal:
         scores = torch.where(kpos[None, :] <= qpos[:, None], scores, NEG_INF)
     if kv_len_mask is not None:                 # (b, skv) valid-key mask
@@ -168,19 +176,22 @@ Q_BLOCK = 1024
 
 
 def _sdpa_plain_chunked(q, k, v, *, causal: bool,
-                        q_block: int = Q_BLOCK) -> torch.Tensor:
+                        q_block: int = Q_BLOCK,
+                        scale: Optional[float] = None) -> torch.Tensor:
     """Blockwise attention: full keys for each query block; the same math
     as :func:`_sdpa_plain` with O(q_block * S) peak memory."""
     sq = q.shape[1]
     if sq % q_block:
         raise ValueError(f"seq {sq} not divisible by q_block {q_block}")
     return torch.cat([_sdpa_plain(q[:, i:i + q_block], k, v, causal=causal,
-                                  q_offset=i)
+                                  q_offset=i, scale=scale)
                       for i in range(0, sq, q_block)], dim=1)
 
 
-def sdpa(q, k, v, *, causal: bool, impl: str = "plain") -> torch.Tensor:
-    """Dispatch: flash kernel (causal), chunked plain, or dense plain."""
+def sdpa(q, k, v, *, causal: bool, impl: str = "plain",
+         scale: Optional[float] = None) -> torch.Tensor:
+    """Dispatch: flash kernel (causal), chunked plain, or dense plain; the
+    scores scaled by ``scale`` (None: head_dim^-1/2) on every route."""
     if impl not in IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}; one of {IMPLS}")
     if impl == "kernel" and causal:
@@ -192,11 +203,11 @@ def sdpa(q, k, v, *, causal: bool, impl: str = "plain") -> torch.Tensor:
         # shards; contiguous head shards keep GQA's groups whole when both
         # head counts divide the model axis, and per_shard replicates the
         # heads where either does not
-        return per_shard(lambda q, k, v: flash_ops.flash_attention(q, k, v),
-                         (q, k, v), (_BSHD, _BSHD, _BSHD), _BSHD)
+        return per_shard(lambda q, k, v: flash_ops.flash_attention(
+            q, k, v, scale=scale), (q, k, v), (_BSHD, _BSHD, _BSHD), _BSHD)
     if q.shape[1] > CHUNKED_SEQ_THRESHOLD and q.shape[1] == k.shape[1]:
-        return _sdpa_plain_chunked(q, k, v, causal=causal)
-    return _sdpa_plain(q, k, v, causal=causal)
+        return _sdpa_plain_chunked(q, k, v, causal=causal, scale=scale)
+    return _sdpa_plain(q, k, v, causal=causal, scale=scale)
 
 
 def attention(params, x: torch.Tensor, *, n_heads: int, kv_heads: int,

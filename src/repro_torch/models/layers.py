@@ -43,22 +43,25 @@ def dense_init(gen, in_dim: int, out_dim: int, dtype, device, *,
 # --------------------------------------------------------------------------
 
 def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor],
-             eps: float = 1e-6) -> torch.Tensor:
+             eps: Optional[float] = None) -> torch.Tensor:
+    """RMSNorm at ``eps`` (None: 1e-6)."""
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps)
+    out = xf * torch.rsqrt(var + (1e-6 if eps is None else eps))
     if weight is not None:
         out = out * weight.float()
     return out.to(x.dtype)
 
 
 def layer_norm(x: torch.Tensor, weight: Optional[torch.Tensor],
-               bias: Optional[torch.Tensor], eps: float = 1e-5) -> torch.Tensor:
-    """Parametric LN; pass weight=bias=None for OLMo's non-parametric LN."""
+               bias: Optional[torch.Tensor],
+               eps: Optional[float] = None) -> torch.Tensor:
+    """Parametric LN at ``eps`` (None: 1e-5); pass weight=bias=None for
+    OLMo's non-parametric LN."""
     xf = x.float()
     mean = xf.mean(dim=-1, keepdim=True)
     var = ((xf - mean) ** 2).mean(dim=-1, keepdim=True)
-    out = (xf - mean) * torch.rsqrt(var + eps)
+    out = (xf - mean) * torch.rsqrt(var + (1e-5 if eps is None else eps))
     if weight is not None:
         out = out * weight.float()
     if bias is not None:
@@ -87,13 +90,15 @@ def norm_axes(norm_type: str) -> Axes:
     raise ValueError(norm_type)
 
 
-def apply_norm(params: Params, x: torch.Tensor, norm_type: str) -> torch.Tensor:
+def apply_norm(params: Params, x: torch.Tensor, norm_type: str,
+               eps: Optional[float] = None) -> torch.Tensor:
+    """The norm of ``norm_type``, at ``eps`` (None: the norm's own)."""
     if norm_type == "rmsnorm":
-        return rms_norm(x, params["w"])
+        return rms_norm(x, params["w"], eps)
     if norm_type == "layernorm":
-        return layer_norm(x, params["w"], params["b"])
+        return layer_norm(x, params["w"], params["b"], eps)
     if norm_type == "nonparametric":
-        return layer_norm(x, None, None)
+        return layer_norm(x, None, None, eps)
     raise ValueError(norm_type)
 
 

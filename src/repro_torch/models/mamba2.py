@@ -11,6 +11,19 @@ State per head: h in R^{N x P} with N = ssm state, P = head_dim. Decode
 is the O(1) recurrent update in plain torch; the reference has no kernel
 for it either.
 
+Two options of :class:`SSMConfig` give the published Mamba2 mixer (Granite
+4.0-H); both default to the reference's mixer (zamba2). ``conv_xbc``: the
+causal conv, with a bias, runs over x, B and C together, and all three
+pass through the SiLU (the conv cache holds ``d_inner + 2 N`` channels).
+``pad_to_chunk``: a prompt that is longer than a chunk and not a whole
+number of chunks is padded, for the scan alone, to the next multiple with
+``dt = 0``, where the reference asserts: a step of ``dt = 0`` neither
+decays the state nor adds to it, so the state after the padding is the
+state at the last true position, and the padded rows of y are dropped.
+``ssd_real_tokens`` and ``ssd_pad_tokens`` count, over every scan since
+import (always on, host integers), the positions scanned and those added
+by the padding.
+
 Where JAX promotes mixed dtypes inside ``einsum``, torch raises, so the
 bf16 operands are cast to fp32 at the points where JAX promotes them; the
 reference's rounding points are kept (``C . B^T`` in the model dtype on
@@ -36,6 +49,15 @@ class SSMConfig:
     expand: int = 2
     conv_kernel: int = 4
     chunk: int = 128
+    #: the published mixer's conv: over x, B and C, with a bias
+    conv_xbc: bool = False
+    #: pad a prompt to a whole number of chunks (dt = 0) instead of raising
+    pad_to_chunk: bool = False
+
+
+#: positions every scan ran on, and the ones ``pad_to_chunk`` added
+ssd_real_tokens = 0
+ssd_pad_tokens = 0
 
 
 def d_inner(d_model: int, cfg: SSMConfig) -> int:
@@ -44,6 +66,22 @@ def d_inner(d_model: int, cfg: SSMConfig) -> int:
 
 def n_heads(d_model: int, cfg: SSMConfig) -> int:
     return d_inner(d_model, cfg) // cfg.head_dim
+
+
+def conv_channels(d_model: int, cfg: SSMConfig) -> int:
+    """Channels of the causal conv: x, or x, B and C (``conv_xbc``)."""
+    return d_inner(d_model, cfg) + (2 * cfg.state if cfg.conv_xbc else 0)
+
+
+def _make_conv(gen, d_model: int, cfg: SSMConfig, dtype, device) -> Tree:
+    """The conv's taps (k, channels): ``conv_x`` over x alone, or ``conv``
+    with ``taps`` and a bias ``b`` (zeros) over x, B and C."""
+    k, ch = cfg.conv_kernel, conv_channels(d_model, cfg)
+    taps = normal(gen, (k, ch), dtype, k ** -0.5, device)
+    if not cfg.conv_xbc:
+        return {"conv_x": taps}
+    return {"conv": {"taps": taps,
+                     "b": torch.zeros(ch, dtype=dtype, device=device)}}
 
 
 def make_mamba2_params(gen, d_model: int, cfg: SSMConfig, dtype,
@@ -60,8 +98,7 @@ def make_mamba2_params(gen, d_model: int, cfg: SSMConfig, dtype,
         "b_proj": dense_init(gen, d_model, n, dtype, device),
         "c_proj": dense_init(gen, d_model, n, dtype, device),
         "dt_proj": dense_init(gen, d_model, h, dtype, device),
-        "conv_x": normal(gen, (cfg.conv_kernel, di), dtype,
-                         cfg.conv_kernel ** -0.5, device),
+        **_make_conv(gen, d_model, cfg, dtype, device),
         "A_log": torch.zeros(h, **f32),             # A = -exp(A_log)
         "dt_bias": torch.zeros(h, **f32),
         "D": torch.ones(h, **f32),
@@ -71,11 +108,16 @@ def make_mamba2_params(gen, d_model: int, cfg: SSMConfig, dtype,
     }
 
 
-def mamba2_axes() -> Tree:
-    """The logical axes of :func:`make_mamba2_params`' tree."""
+def mamba2_axes(cfg: Optional[SSMConfig] = None) -> Tree:
+    """The logical axes of :func:`make_mamba2_params`' tree; the conv over
+    x, B and C mixes the inner and state channels, so its channel axis
+    has no name."""
+    conv = ({"conv": {"taps": ("conv", None), "b": (None,)}}
+            if cfg is not None and cfg.conv_xbc
+            else {"conv_x": ("conv", "inner")})
     return {"z_proj": ("embed", "inner"), "x_proj": ("embed", "inner"),
             "b_proj": ("embed", "state"), "c_proj": ("embed", "state"),
-            "dt_proj": ("embed", "ssm_heads"), "conv_x": ("conv", "inner"),
+            "dt_proj": ("embed", "ssm_heads"), **conv,
             "A_log": ("ssm_heads",), "dt_bias": ("ssm_heads",),
             "D": ("ssm_heads",), "norm_w": ("inner",),
             "out_proj": ("inner", "embed")}
@@ -179,24 +221,56 @@ def _ssd_chunked(xh, b_mat, c_mat, log_a, dt, cfg: SSMConfig,
     return y, h_last
 
 
+def _scan_length(s: int, cfg: SSMConfig) -> int:
+    """The length the scan runs at: s, or with ``pad_to_chunk`` a prompt
+    longer than a chunk rounded up to a whole number of chunks."""
+    if cfg.pad_to_chunk and s > cfg.chunk and s % cfg.chunk:
+        return -(-s // cfg.chunk) * cfg.chunk
+    return s
+
+
+def _conv_input(params: Tree, x: torch.Tensor, cfg: SSMConfig
+                ) -> torch.Tensor:
+    """What the causal conv runs over, before it: x's projection, or the
+    projections to x, B and C side by side (``conv_xbc``)."""
+    if not cfg.conv_xbc:
+        return x @ params["x_proj"]
+    return torch.cat([x @ params["x_proj"], x @ params["b_proj"],
+                      x @ params["c_proj"]], dim=-1)
+
+
+def _split_xbc(xbc: torch.Tensor, di: int, n: int):
+    """x, B and C of the conv's SiLU output, each contiguous (the scan's
+    kernels take contiguous rows)."""
+    return tuple(t.contiguous() for t in xbc.split([di, n, n], dim=-1))
+
+
 def apply_mamba2(params: Tree, x: torch.Tensor, cfg: SSMConfig,
-                 use_kernel: bool = False, return_state: bool = False):
+                 use_kernel: bool = False, return_state: bool = False,
+                 eps: Optional[float] = None):
     """Full-sequence (train / prefill) Mamba2 block. x: (b, s, d).
 
     The chunked path returns y in fp32, the kernel route in x's type, so
     the skip term, the gated norm and the cast before ``out_proj`` see
-    different types on the two paths, as in the reference.
+    different types on the two paths, as in the reference. ``eps`` is the
+    gated norm's.
     """
+    global ssd_real_tokens, ssd_pad_tokens
     bsz, s, _ = x.shape
     di = params["x_proj"].shape[1]
     h = params["A_log"].shape[0]
     p = di // h
 
     z = x @ params["z_proj"]
-    xr_pre = x @ params["x_proj"]                           # pre-conv (cache)
-    xr = F.silu(_causal_conv(xr_pre, params["conv_x"]))
-    bm = x @ params["b_proj"]
-    cm = x @ params["c_proj"]
+    xr_pre = _conv_input(params, x, cfg)                    # pre-conv (cache)
+    if cfg.conv_xbc:
+        conv = params["conv"]
+        xbc = F.silu(_causal_conv(xr_pre, conv["taps"]) + conv["b"])
+        xr, bm, cm = _split_xbc(xbc, di, cfg.state)
+    else:
+        xr = F.silu(_causal_conv(xr_pre, params["conv_x"]))
+        bm = x @ params["b_proj"]
+        cm = x @ params["c_proj"]
 
     dt = softplus((x @ params["dt_proj"]).float() + params["dt_bias"])
     a = -torch.exp(params["A_log"])                               # (h,)
@@ -209,29 +283,39 @@ def apply_mamba2(params: Tree, x: torch.Tensor, cfg: SSMConfig,
     from repro_torch.distributed.sharding import constrain, per_shard
     xh = constrain(xr.reshape(bsz, s, h, p), ("batch", "act_seq", "inner",
                                              None))
+    pad = _scan_length(s, cfg) - s
+    ssd_real_tokens += bsz * s
+    ssd_pad_tokens += bsz * pad
+    scan_in = (xh, bm, cm, log_a, dt)
+    if pad:             # zeros: dt = 0 keeps the state, adds nothing to it
+        scan_in = tuple(F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+                        for t in scan_in)
     if use_kernel:
         from repro_torch.kernels.ssd_scan import ops as ssd_ops
         scan = lambda *a: ssd_ops.ssd_scan(*a, chunk=cfg.chunk)
     else:
         scan = lambda *a: _ssd_chunked(*a, cfg)
     y, h_last = per_shard(
-        scan, (xh, bm, cm, log_a, dt),
+        scan, scan_in,
         (("b", None, "h", None), ("b", None, None), ("b", None, None),
          ("b", None, "h"), ("b", None, "h")),
         (("b", None, "h", None), ("b", "h", None, None)))
+    if pad:
+        y = y[:, :s]
     y = y + params["D"].to(y.dtype)[None, None, :, None] * xh
     y = y.reshape(bsz, s, di)
-    y = rms_norm(y * F.silu(z).to(y.dtype), params["norm_w"])
+    y = rms_norm(y * F.silu(z).to(y.dtype), params["norm_w"], eps)
     out = y.to(x.dtype) @ params["out_proj"]
     return (out, h_last, xr_pre) if return_state else out
 
 
 def apply_mamba2_with_state(params: Tree, x: torch.Tensor, cfg: SSMConfig,
-                            use_kernel: bool = False
+                            use_kernel: bool = False, eps: Optional[float] = None
                             ) -> Tuple[torch.Tensor, Tree]:
-    """Prefill entry point: full-seq output + decode-ready cache."""
+    """Prefill entry point: full-seq output + decode-ready cache, whose
+    conv window is the pre-conv inputs of the last true positions."""
     out, h_last, xr_pre = apply_mamba2(params, x, cfg, use_kernel=use_kernel,
-                                       return_state=True)
+                                       return_state=True, eps=eps)
     # imported here: repro_torch.distributed imports the training code,
     # which imports this module
     from repro_torch.distributed.sharding import per_shard
@@ -252,18 +336,19 @@ def apply_mamba2_with_state(params: Tree, x: torch.Tensor, cfg: SSMConfig,
 
 def init_mamba2_cache(batch: int, d_model: int, cfg: SSMConfig, dtype,
                       device) -> Tree:
-    di = d_inner(d_model, cfg)
     h = n_heads(d_model, cfg)
     return {"h": torch.zeros((batch, h, cfg.state, cfg.head_dim),
                              dtype=dtype, device=device),
-            "conv": torch.zeros((batch, cfg.conv_kernel - 1, di),
+            "conv": torch.zeros((batch, cfg.conv_kernel - 1,
+                                 conv_channels(d_model, cfg)),
                                 dtype=dtype, device=device)}
 
 
 def decode_mamba2(params: Tree, x: torch.Tensor, cache: Tree,
-                  cfg: SSMConfig) -> Tuple[torch.Tensor, Tree]:
+                  cfg: SSMConfig, eps: Optional[float] = None
+                  ) -> Tuple[torch.Tensor, Tree]:
     """One-token recurrent step. x: (b, 1, d). Returns new tensors; the
-    cache passed in is not written."""
+    cache passed in is not written. ``eps`` is the gated norm's."""
     bsz = x.shape[0]
     di = params["x_proj"].shape[1]
     h = params["A_log"].shape[0]
@@ -271,14 +356,18 @@ def decode_mamba2(params: Tree, x: torch.Tensor, cache: Tree,
 
     x1 = x[:, 0]
     z = x1 @ params["z_proj"]
-    xr = x1 @ params["x_proj"]                                    # (b, di)
-    window = torch.cat([cache["conv"], xr[:, None, :]], dim=1)    # (b,k,di)
-    conv_out = torch.einsum("bkc,kc->bc", window, params["conv_x"])
-    xr = F.silu(conv_out)
+    xr = _conv_input(params, x1, cfg)                             # (b, ch)
+    window = torch.cat([cache["conv"], xr[:, None, :]], dim=1)    # (b,k,ch)
     new_conv = window[:, 1:, :]
-
-    bm = x1 @ params["b_proj"]
-    cm = x1 @ params["c_proj"]
+    if cfg.conv_xbc:
+        conv_out = torch.einsum("bkc,kc->bc", window, params["conv"]["taps"])
+        xr, bm, cm = F.silu(conv_out + params["conv"]["b"]).split(
+            [di, cfg.state, cfg.state], dim=-1)
+    else:
+        conv_out = torch.einsum("bkc,kc->bc", window, params["conv_x"])
+        xr = F.silu(conv_out)
+        bm = x1 @ params["b_proj"]
+        cm = x1 @ params["c_proj"]
     dt = softplus((x1 @ params["dt_proj"]).float() + params["dt_bias"])
     a = torch.exp(dt * -torch.exp(params["A_log"]))               # (b,h)
 
@@ -288,6 +377,6 @@ def decode_mamba2(params: Tree, x: torch.Tensor, cache: Tree,
     y = torch.einsum("bn,bhnp->bhp", cm, h_new)
     y = y + params["D"].to(y.dtype)[None, :, None] * xh
     y = y.reshape(bsz, di)
-    y = rms_norm(y * F.silu(z), params["norm_w"])
+    y = rms_norm(y * F.silu(z), params["norm_w"], eps)
     out = (y @ params["out_proj"])[:, None, :]
     return out, {"h": h_new, "conv": new_conv}

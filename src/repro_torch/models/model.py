@@ -13,6 +13,11 @@ One config schema, the reference's six families:
   vlm     decoder with gated cross-attention to precomputed patch
           embeddings every k layers (llama-3.2-vision)
 
+and one of the port alone, with no counterpart in the reference:
+
+  hybrid_moe  Mamba2 mixers with attention on the layers ``attn_layers``
+          names, a mixture of experts after every mixer (granite-4.0-h)
+
 Entry points, as in the reference:
 
   ``forward``      full-sequence logits
@@ -50,7 +55,7 @@ from repro_torch.models import xlstm as xl
 from repro_torch.models.layers import (apply_norm, dense_init, embed_axes,
                                        embed_tokens, make_embed_params,
                                        make_norm_params, norm_axes, unembed)
-from repro_torch.models.moe import MoEConfig
+from repro_torch.models.moe import MoEConfig, make_moe_params, moe_axes
 from repro_torch.models.transformer import (BLOCK_CACHE_AXES,
                                             BLOCK_CACHE_AXES_Q, BlockConfig,
                                             apply_cross_block,
@@ -65,9 +70,10 @@ from repro_torch.models.transformer import (BLOCK_CACHE_AXES,
                                             make_decoder_block,
                                             prefill_cross_block,
                                             prefill_decoder_block,
-                                            prepend_axis, stack_params,
-                                            tree_leaves, tree_map,
-                                            unstack_params)
+                                            prepend_axis, residual,
+                                            stack_params, tree_leaves,
+                                            tree_map, unstack_params)
+from repro_torch.models.transformer import _ffn as ffn_sublayer
 from repro_torch.distributed.sharding import constrain, per_shard
 from repro_torch.tracing import span
 
@@ -110,6 +116,21 @@ class ModelConfig:
     remat: str = "dots"              # none | dots | full
     sub_quadratic: bool = False      # can serve long_500k
     kv_cache_quant: bool = False     # int8 KV cache (dense/moe decode)
+    #: hybrid_moe: the layers whose mixer is attention (the others are
+    #: Mamba2); an index past n_layers lies beyond a depth cut
+    attn_layers: Tuple[int, ...] = ()
+    #: Granite's scalars (moe, hybrid_moe); the defaults change
+    #: nothing. The embeddings are multiplied by ``embedding_multiplier``,
+    #: the attention scores scaled by ``attention_multiplier`` (None:
+    #: head_dim^-1/2), each sublayer's output by ``residual_multiplier``
+    #: before its residual add, and the logits divided by
+    #: ``logits_scaling``
+    embedding_multiplier: float = 1.0
+    attention_multiplier: Optional[float] = None
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+    #: every norm's epsilon (moe, hybrid_moe; None: each norm's own)
+    norm_eps: Optional[float] = None
 
     @property
     def hd(self) -> int:
@@ -131,7 +152,10 @@ class ModelConfig:
             head_dim=self.hd, d_ff=d_ff if d_ff is not None else self.d_ff,
             norm=self.norm, mlp=self.mlp, qkv_bias=self.qkv_bias,
             qk_norm=self.qk_norm, rope_theta=self.rope_theta,
-            moe=self.moe if moe else None, attn_impl=self.attn_impl)
+            moe=self.moe if moe else None, attn_impl=self.attn_impl,
+            attn_scale=self.attention_multiplier,
+            residual_multiplier=self.residual_multiplier,
+            norm_eps=self.norm_eps)
 
     def n_params(self) -> int:
         """Total parameter count, from shapes on the meta device."""
@@ -139,7 +163,8 @@ class ModelConfig:
         return sum(math.prod(p.shape) for p in tree_leaves(params))
 
     def n_active_params(self) -> int:
-        """Active params per token (MoE: routed top-k + shared only)."""
+        """Active params per token (MoE: routed top-k + shared only; every
+        layer of the moe and hybrid_moe families has experts)."""
         total = self.n_params()
         if self.moe is None:
             return total
@@ -150,6 +175,8 @@ class ModelConfig:
 
 
 REMAT = ("none", "dots", "full")
+#: the families that honour Granite's scalars and ``norm_eps``
+SCALED_FAMILIES = ("moe", "hybrid_moe")
 
 
 def _save_dots(ctx, op, *args, **kwargs):
@@ -182,12 +209,22 @@ def _maybe_remat(fn: Callable, remat: str) -> Callable:
 class Model:
     """Functional model wrapper: holds the config and the device."""
 
-    FAMILIES = ("dense", "moe", "hybrid", "ssm", "audio", "vlm")
+    FAMILIES = ("dense", "moe", "hybrid", "ssm", "audio", "vlm", "hybrid_moe")
 
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
         if cfg.family not in self.FAMILIES:
             raise ValueError(f"unknown family {cfg.family!r}; one of "
                              f"{self.FAMILIES}")
+        scaled = (cfg.embedding_multiplier, cfg.attention_multiplier,
+                  cfg.residual_multiplier, cfg.logits_scaling, cfg.norm_eps)
+        if cfg.family not in SCALED_FAMILIES and \
+                scaled != (1.0, None, 1.0, 1.0, None):
+            raise ValueError(f"family {cfg.family!r} takes no multipliers "
+                             f"nor norm_eps; only {SCALED_FAMILIES} do")
+        if cfg.family == "hybrid_moe" and (cfg.ssm is None or cfg.moe is None):
+            raise ValueError("hybrid_moe needs an ssm and a moe config")
+        if cfg.attn_layers and cfg.family != "hybrid_moe":
+            raise ValueError("attn_layers is hybrid_moe's")
         self.cfg = cfg
         self.device = resolve_device(device)
 
@@ -202,7 +239,8 @@ class Model:
             gen.manual_seed(seed)
         build = {"dense": self._build_decoder, "moe": self._build_decoder,
                  "hybrid": self._build_hybrid, "ssm": self._build_xlstm,
-                 "audio": self._build_audio, "vlm": self._build_vlm}
+                 "audio": self._build_audio, "vlm": self._build_vlm,
+                 "hybrid_moe": self._build_hybrid_moe}
         return build[self.cfg.family](gen)
 
     def build(self, seed: int = 0) -> Tuple[Tree, Tree]:
@@ -230,6 +268,13 @@ class Model:
             axes["layers"] = prepend_axis({"mamba": m2.mamba2_axes(),
                                            "norm": norm_axes(cfg.norm)})
             axes["shared"] = decoder_block_axes(self._shared_cfg())
+        elif family == "hybrid_moe":
+            bcfg = cfg.block_cfg()
+            axes["mamba_layers"] = prepend_axis(
+                {"mamba": m2.mamba2_axes(cfg.ssm), "norm1": norm_axes(cfg.norm),
+                 "norm2": norm_axes(cfg.norm), "moe": moe_axes(cfg.moe)})
+            if "attn" in self._mixer_kinds():
+                axes["attn_layers"] = prepend_axis(decoder_block_axes(bcfg))
         elif family == "ssm":
             block = {"mlstm": xl.mlstm_axes, "slstm": xl.slstm_axes}
             axes["layers"] = [{"block": block[kind](),
@@ -289,12 +334,15 @@ class Model:
         """The final norm and the logits (span ``rt.logits``), of the last
         position only if ``last``."""
         with span("rt.logits"):
-            x = apply_norm(params["final_norm"], x, self.cfg.norm)
+            x = apply_norm(params["final_norm"], x, self.cfg.norm,
+                           self.cfg.norm_eps)
             return self._logits(params, x[:, -1:] if last else x)
 
     def _logits(self, params: Tree, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         logits = unembed(params["embed"], x).float()
+        if cfg.logits_scaling != 1.0:
+            logits = logits / cfg.logits_scaling
         if cfg.padded_vocab != cfg.vocab:          # mask pad columns
             pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab
             logits = logits.masked_fill(pad, -1e30)
@@ -308,6 +356,8 @@ class Model:
         x = per_shard(lambda ids, tok: embed_tokens({"tok": tok}, ids),
                       (tokens, params["embed"]["tok"]),
                       (("b", None), (None, None)), ("b", None, None))
+        if self.cfg.embedding_multiplier != 1.0:
+            x = x * self.cfg.embedding_multiplier
         return constrain(x, ACT_AXES)
 
     def _zero_aux(self, x: torch.Tensor) -> torch.Tensor:
@@ -322,7 +372,8 @@ class Model:
         for lp in unstack_params(params["layers"], cfg.n_layers):
             x, a = block(lp, constrain(x, ACT_AXES))
             aux = aux + a
-        return apply_norm(params["final_norm"], x, cfg.norm), aux
+        return apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps), \
+            aux
 
     # -- hybrid (zamba2) ---------------------------------------------------------
 
@@ -352,6 +403,87 @@ class Model:
                             self._shared_flags()):
             x = body(lp, constrain(x, ACT_AXES), bool(flag))
         return apply_norm(params["final_norm"], x, cfg.norm), self._zero_aux(x)
+
+    # -- hybrid_moe (granite-4.0-h: Mamba2 or attention, then experts) --------
+
+    def _mixer_kinds(self):
+        """Per-layer mixer: "attn" on the layers ``attn_layers`` names,
+        "mamba" on the others."""
+        attn = set(self.cfg.attn_layers)
+        return ["attn" if i in attn else "mamba"
+                for i in range(self.cfg.n_layers)]
+
+    def _build_hybrid_moe(self, gen) -> Tree:
+        """Two stacks: ``mamba_layers`` (norm1, the Mamba2 mixer, norm2,
+        the experts) and ``attn_layers`` (a decoder block with experts),
+        each in layer order; ``_mixer_kinds`` interleaves them."""
+        cfg, dev, dt = self.cfg, self.device, self.cfg.tdtype
+        bcfg = cfg.block_cfg()
+        kinds = self._mixer_kinds()
+
+        def mamba_layer():
+            return {"mamba": m2.make_mamba2_params(gen, cfg.d_model, cfg.ssm,
+                                                   dt, dev),
+                    "norm1": self._norm_params(),
+                    "norm2": self._norm_params(),
+                    "moe": make_moe_params(gen, cfg.d_model, cfg.moe, dt,
+                                           dev)}
+
+        params = {"embed": self._embed_params(gen),
+                  "mamba_layers": stack_params(kinds.count("mamba"),
+                                               mamba_layer),
+                  "final_norm": self._norm_params()}
+        if "attn" in kinds:
+            params["attn_layers"] = stack_params(
+                kinds.count("attn"),
+                lambda: make_decoder_block(gen, bcfg, dt, dev))
+        return params
+
+    def _hybrid_moe_layers(self, params: Tree):
+        """(kind, the layer's params) of every layer in order."""
+        kinds = self._mixer_kinds()
+        stacks = {k: iter(unstack_params(params[f"{k}_layers"],
+                                         kinds.count(k)))
+                  for k in set(kinds)}
+        return [(k, next(stacks[k])) for k in kinds]
+
+    def _mamba_moe(self, lp: Tree, x: torch.Tensor, bcfg: BlockConfig,
+                   mixer: Callable):
+        """A Mamba2 layer: x + r mixer(norm1(x)), then + r experts(norm2(.)).
+        ``mixer(params, h)`` gives (y, the layer's decode state or None).
+        Returns (x, aux, that state)."""
+        cfg = self.cfg
+        with span("rt.mamba"):
+            y, st = mixer(lp["mamba"],
+                          apply_norm(lp["norm1"], x, cfg.norm, cfg.norm_eps))
+            x = x + residual(y, bcfg)
+        f, aux = ffn_sublayer(lp, x, bcfg)
+        return x + residual(f, bcfg), aux, st
+
+    def _scan(self, with_state: bool) -> Callable:
+        """The full-sequence Mamba2 mixer for ``_mamba_moe``, with or
+        without the decode state."""
+        cfg = self.cfg
+        kw = dict(use_kernel=cfg.use_ssm_kernel, eps=cfg.norm_eps)
+        if with_state:
+            return lambda p, h: m2.apply_mamba2_with_state(p, h, cfg.ssm, **kw)
+        return lambda p, h: (m2.apply_mamba2(p, h, cfg.ssm, **kw), None)
+
+    def _hybrid_moe_forward(self, params: Tree, x: torch.Tensor):
+        cfg = self.cfg
+        bcfg = cfg.block_cfg()
+        attn = _maybe_remat(lambda lp, h: apply_decoder_block(lp, h, bcfg),
+                            cfg.remat)
+        scan = self._scan(with_state=False)
+        mamba = _maybe_remat(
+            lambda lp, h: self._mamba_moe(lp, h, bcfg, scan)[:2], cfg.remat)
+        aux = self._zero_aux(x)
+        for kind, lp in self._hybrid_moe_layers(params):
+            x, a = (attn if kind == "attn" else mamba)(lp, constrain(x,
+                                                                     ACT_AXES))
+            aux = aux + a
+        return apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps), \
+            aux
 
     # -- ssm (xlstm) -------------------------------------------------------------
 
@@ -502,6 +634,8 @@ class Model:
         x = self._embed_tokens(params, tokens)
         if family == "hybrid":
             x, aux = self._hybrid_forward(params, x)
+        elif family == "hybrid_moe":
+            x, aux = self._hybrid_moe_forward(params, x)
         elif family == "ssm":
             x, aux = self._xlstm_forward(params, x)
         elif family == "vlm":
@@ -543,6 +677,20 @@ class Model:
                     "attn": prepend_axis(BLOCK_CACHE_AXES), "length": la}
             return {"mamba": _stacked(mamba, cfg.n_layers),
                     "attn": _stacked(one, n_apps), "length": length}, axes
+        if cfg.family == "hybrid_moe":
+            kinds = self._mixer_kinds()
+            mamba = m2.init_mamba2_cache(batch, cfg.d_model, cfg.ssm, dt, dev)
+            cache = {"mamba": _stacked(mamba, kinds.count("mamba")),
+                     "length": length}
+            axes = {"mamba": {"h": ("layers", "batch", "inner", None, None),
+                              "conv": ("layers", "batch", None, None)},
+                    "length": la}
+            if "attn" in kinds:
+                one = init_block_cache(batch, max_len, cfg.block_cfg(), dt,
+                                       dev)
+                cache["attn"] = _stacked(one, kinds.count("attn"))
+                axes["attn"] = prepend_axis(BLOCK_CACHE_AXES)
+            return cache, axes
         if cfg.family == "ssm":
             caches, axes = [], []
             for kind in self._xlstm_kinds():
@@ -641,6 +789,22 @@ class Model:
             return self._head(params, x, last=True), {
                 "mamba": stack(mamba_states), "attn": stack(attn_caches),
                 "length": length}
+        if cfg.family == "hybrid_moe":
+            # each Mamba2 layer keeps its final SSM state and conv window,
+            # each attention layer its keys and values
+            bcfg, scan = cfg.block_cfg(), self._scan(with_state=True)
+            states, caches = [], []
+            for kind, lp in self._hybrid_moe_layers(params):
+                if kind == "attn":
+                    x, _, c = prefill_decoder_block(lp, x, bcfg, max_len)
+                    caches.append(c)
+                else:
+                    x, _, st = self._mamba_moe(lp, x, bcfg, scan)
+                    states.append(st)
+            cache = {"mamba": stack(states), "length": length}
+            if caches:
+                cache["attn"] = stack(caches)
+            return self._head(params, x, last=True), cache
         if cfg.family == "ssm":
             # every mLSTM prefill takes the chunkwise form, which returns
             # the matrix memory; the sLSTM runs its recurrence
@@ -737,6 +901,26 @@ class Model:
                         params["shared"], x, layer_slice(cache["attn"], app),
                         length, sb_cfg)
                     app += 1
+        elif cfg.family == "hybrid_moe":
+            bcfg = cfg.block_cfg()
+            at = {"mamba": 0, "attn": 0}
+            for kind in self._mixer_kinds():
+                i = at[kind]
+                at[kind] += 1
+                lp = layer_slice(params[f"{kind}_layers"], i)
+                if kind == "attn":
+                    x, _ = decode_decoder_block(
+                        lp, x, layer_slice(cache["attn"], i), length, bcfg)
+                    continue
+
+                def step(p, h, mc=layer_slice(cache["mamba"], i)):
+                    y, new = m2.decode_mamba2(p, h, mc, cfg.ssm,
+                                              eps=cfg.norm_eps)
+                    for k, t in new.items():
+                        mc[k].copy_(t)
+                    return y, None
+
+                x, _, _ = self._mamba_moe(lp, x, bcfg, step)
         elif cfg.family == "ssm":
             decode = {"mlstm": xl.decode_mlstm, "slstm": xl.decode_slstm}
             for lp, kind, st in zip(params["layers"], self._xlstm_kinds(),

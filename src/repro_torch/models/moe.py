@@ -4,8 +4,9 @@ of ``repro.models.moe``).
 Expert-major gather, as in the reference: every expert takes its
 top-``capacity`` tokens of the routing matrix, runs its FFN on a dense
 (experts, capacity, d) block and scatter-adds the results back to their
-tokens, weighted by the gate. Shared experts (Qwen2-MoE) and top-k
-renormalisation (Granite) are supported; ``apply_moe`` also returns the
+tokens, weighted by the gate. Shared experts, added through a sigmoid
+gate (Qwen2-MoE) or ungated (Granite 4.0-H, ``shared_gated=False``), and
+top-k renormalisation (Granite) are supported; ``apply_moe`` also returns the
 Switch-style load-balance loss.
 
 Three choices keep the port on the reference's results and make it
@@ -57,6 +58,9 @@ class MoEConfig:
     top_k: int
     expert_ff: int            # per-expert FFN width
     shared_ff: int = 0        # shared-expert FFN width (0 = none)
+    #: the shared expert's output goes through a sigmoid gate of its own
+    #: router (Qwen2-MoE); False adds it as it is (Granite 4.0-H)
+    shared_gated: bool = True
     norm_topk: bool = False   # renormalize top-k gate weights
     capacity_factor: float = 1.25
     aux_coef: float = 0.01
@@ -92,8 +96,10 @@ def make_moe_params(gen, d_model: int, cfg: MoEConfig, dtype,
                                     device),
             "shared_down": dense_init(gen, cfg.shared_ff, d_model, dtype,
                                       device, scale=cfg.shared_ff ** -0.5),
-            "shared_router": dense_init(gen, d_model, 1, dtype, device),
         })
+        if cfg.shared_gated:
+            params["shared_router"] = dense_init(gen, d_model, 1, dtype,
+                                                 device)
     return params
 
 
@@ -105,8 +111,9 @@ def moe_axes(cfg: MoEConfig) -> Dict[str, tuple]:
             "down": ("expert", "mlp", "embed")}
     if cfg.shared_ff > 0:
         axes.update(shared_gate=("embed", "mlp"), shared_up=("embed", "mlp"),
-                    shared_down=("mlp", "embed"),
-                    shared_router=("embed", "null"))
+                    shared_down=("mlp", "embed"))
+        if cfg.shared_gated:
+            axes["shared_router"] = ("embed", "null")
     return axes
 
 
@@ -289,9 +296,12 @@ def apply_moe(params: Params, x: torch.Tensor, cfg: MoEConfig
         raise ValueError(f"unknown MoE dispatch {cfg.dispatch!r}")
 
     if cfg.shared_ff > 0:
-        sh = (F.silu(xf @ params["shared_gate"]) * (xf @ params["shared_up"])
-              ) @ params["shared_down"]
-        out = out + torch.sigmoid(xf @ params["shared_router"]) * sh
+        with tracing.span("rt.shared"):
+            sh = (F.silu(xf @ params["shared_gate"])
+                  * (xf @ params["shared_up"])) @ params["shared_down"]
+            if cfg.shared_gated:
+                sh = torch.sigmoid(xf @ params["shared_router"]) * sh
+            out = out + sh
 
     # Switch-style load-balance auxiliary loss
     frac_tokens = F.one_hot(top_idx, cfg.e_total).float().mean(dim=(0, 1))

@@ -55,6 +55,19 @@ class BlockConfig:
     rope_theta: Optional[float] = 10000.0
     moe: Optional[MoEConfig] = None
     attn_impl: str = "plain"         # plain | kernel
+    #: the attention scores' scale (None: head_dim^-1/2)
+    attn_scale: Optional[float] = None
+    #: each sublayer's output is scaled by this before its residual add
+    residual_multiplier: float = 1.0
+    #: the norms' epsilon (None: each norm's default)
+    norm_eps: Optional[float] = None
+
+
+def residual(out: torch.Tensor, cfg: BlockConfig) -> torch.Tensor:
+    """A sublayer's output as it is added to the residual stream: scaled
+    by ``cfg.residual_multiplier`` (Granite), untouched at 1."""
+    m = cfg.residual_multiplier
+    return out if m == 1.0 else out * m
 
 
 # --------------------------------------------------------------------------
@@ -183,15 +196,16 @@ def _attend_and_ffn(params: Tree, x: torch.Tensor, cfg: BlockConfig,
     """Shared body of the full-sequence block; returns (x, aux, k, v)."""
     b, s, _ = x.shape
     with span("rt.attn"):
-        h = apply_norm(params["norm1"], x, cfg.norm)
+        h = apply_norm(params["norm1"], x, cfg.norm, cfg.norm_eps)
         q, k, v = _project_qkv(params["attn"], h, h, cfg.n_heads,
                                cfg.kv_heads, cfg.head_dim, positions,
                                positions, cfg.rope_theta)
-        o = sdpa(q, k, v, causal=causal, impl=cfg.attn_impl)
-        x = x + o.reshape(b, s, cfg.n_heads * cfg.head_dim) \
-            @ params["attn"]["wo"]
+        o = sdpa(q, k, v, causal=causal, impl=cfg.attn_impl,
+                 scale=cfg.attn_scale)
+        x = x + residual(o.reshape(b, s, cfg.n_heads * cfg.head_dim)
+                         @ params["attn"]["wo"], cfg)
     f, aux = _ffn(params, x, cfg)
-    return x + f, aux, k, v
+    return x + residual(f, cfg), aux, k, v
 
 
 def apply_decoder_block(params: Tree, x: torch.Tensor, cfg: BlockConfig, *,
@@ -357,7 +371,7 @@ def decode_decoder_block(params: Tree, x: torch.Tensor, cache: Dict,
     """
     b = x.shape[0]
     with span("rt.attn"):
-        h = apply_norm(params["norm1"], x, cfg.norm)
+        h = apply_norm(params["norm1"], x, cfg.norm, cfg.norm_eps)
         positions = length[:, None]
         q, k_new, v_new = _project_qkv(params["attn"], h, h, cfg.n_heads,
                                        cfg.kv_heads, cfg.head_dim, positions,
@@ -377,11 +391,12 @@ def decode_decoder_block(params: Tree, x: torch.Tensor, cache: Dict,
             k, v = cache["k"], cache["v"]
         valid = (torch.arange(max_len, device=x.device)[None, :]
                  <= length[:, None])
-        o = _sdpa_plain(q, k, v, causal=False, kv_len_mask=valid)
-        x = x + o.reshape(b, 1, cfg.n_heads * cfg.head_dim) \
-            @ params["attn"]["wo"]
+        o = _sdpa_plain(q, k, v, causal=False, kv_len_mask=valid,
+                        scale=cfg.attn_scale)
+        x = x + residual(o.reshape(b, 1, cfg.n_heads * cfg.head_dim)
+                         @ params["attn"]["wo"], cfg)
     f, _ = _ffn(params, x, cfg)
-    return x + f, cache
+    return x + residual(f, cfg), cache
 
 
 # --------------------------------------------------------------------------

@@ -12,14 +12,29 @@ from repro_torch.configs import ARCH_IDS, get_config, reduced_config
 _IMPL = {"xla": "plain", "pallas": "kernel"}
 
 
+def _port_only(port, ref) -> dict:
+    """The fields of the port's config ``port`` that the reference's
+    ``ref`` lacks (options of the port alone, such as Granite's scalars),
+    with their defaults: a reference arch keeps every one at it."""
+    return {f.name: f.default for f in dataclasses.fields(port)
+            if not hasattr(ref, f.name)}
+
+
 def _assert_same(port, ref):
     for f in dataclasses.fields(port):
+        if not hasattr(ref, f.name):
+            assert getattr(port, f.name) == f.default, f.name
+            continue
         got, want = getattr(port, f.name), getattr(ref, f.name)
         if f.name == "attn_impl":
             want = _IMPL[want]
         if f.name in ("ssm", "moe", "xlstm") and want is not None:
             # the port's own classes
-            got, want = dataclasses.asdict(got), dataclasses.asdict(want)
+            for name, default in _port_only(got, want).items():
+                assert getattr(got, name) == default, f"{f.name}.{name}"
+            got = {k: v for k, v in dataclasses.asdict(got).items()
+                   if hasattr(want, k)}
+            want = dataclasses.asdict(want)
         assert got == want, f.name
     assert port.hd == ref.hd
     assert port.padded_vocab == ref.padded_vocab

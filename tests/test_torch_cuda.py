@@ -63,6 +63,29 @@ def test_flash_kernel_matches_plain(cuda, b, sq, h, hkv, d, dtype):
                                ref.float().cpu().numpy(), **TOL[dtype])
 
 
+@pytest.mark.parametrize("s", [37, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_takes_a_scale(cuda, s, dtype):
+    """granite-4.0-h's attention: 32/8 heads of 128, the scores scaled by
+    its attention_multiplier 1/128 in place of 128^-1/2, against the
+    plain version and the model's plain path at the same scale; the
+    default scale is unchanged."""
+    from repro_torch.models.attention import sdpa
+    rng = np.random.default_rng(5)
+    q = _normal(rng, (1, s, 32, 128), dtype, cuda)
+    k = _normal(rng, (1, s, 8, 128), dtype, cuda)
+    v = _normal(rng, (1, s, 8, 128), dtype, cuda)
+    out = flash_ops.flash_attention(q, k, v, scale=1 / 128)
+    _close(out, attention_ref(q, k, v, scale=1 / 128), TOL[dtype])
+    _close(out, sdpa(q, k, v, causal=True, impl="plain", scale=1 / 128),
+           TOL[dtype])
+    default = flash_ops.flash_attention(q, k, v)
+    assert torch.equal(default, flash_ops.flash_attention(q, k, v,
+                                                          scale=128 ** -0.5))
+    _close(default, attention_ref(q, k, v), TOL[dtype])
+    assert not torch.allclose(out.float(), default.float(), atol=1e-2)
+
+
 def test_flash_kernel_takes_strided_views(cuda):
     """q/k/v sliced out of one fused projection (head_dim contiguous)."""
     rng = np.random.default_rng(1)
@@ -144,10 +167,13 @@ def _scan_inputs(rng, b, s, h, p, n, dtype, device):
 
 
 #: (b, s, h, p, n, chunk): tests/test_kernels.py's sweep, then zamba2's
-#: full width over 4 chunks and one short prompt (q = s < chunk)
+#: full width over 4 chunks and one short prompt (q = s < chunk), then
+#: granite-4.0-h's (state 128, all 128 heads) over 4 chunks and a short
+#: prompt
 SSD_SHAPES = [(2, 128, 4, 32, 16, 32), (1, 256, 8, 64, 64, 128),
               (2, 64, 2, 16, 8, 16), (1, 512, 64, 64, 64, 128),
-              (1, 77, 64, 64, 64, 128)]
+              (1, 77, 64, 64, 64, 128), (1, 512, 128, 64, 128, 128),
+              (1, 77, 16, 64, 128, 128)]
 
 
 def _chunked(xh, bm, cm, log_a, dt, chunk):
@@ -511,11 +537,14 @@ def test_reduced_new_family_on_the_card_matches_cpu(cuda, arch, impl):
 #: so requests are admitted between replays
 GRAPH_QUEUE = ((9, 5), (16, 12), (4, 3), (12, 7), (7, 9))
 #: reduced models, one of each decode path; the attention families'
-#: prefills run the flash kernel, zamba2's the SSD kernels too
+#: prefills run the flash kernel, zamba2's and granite-4.0-h's the SSD
+#: kernels too
 GRAPH_ARCHS = {"granite-moe-3b-a800m": dict(attn_impl="kernel"),
                "qwen3-0.6b": dict(attn_impl="kernel"),
                "zamba2-1.2b": dict(attn_impl="kernel", use_ssm_kernel=True),
-               "xlstm-350m": {}}
+               "xlstm-350m": {},
+               "granite-4.0-h-small": dict(attn_impl="kernel",
+                                           use_ssm_kernel=True)}
 
 
 def _engine_model(cuda, arch):

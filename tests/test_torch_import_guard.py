@@ -129,6 +129,7 @@ def test_port_sources_import_no_jax_or_repro():
         ROOT / "scripts" / "torch_train_profile.py",
         ROOT / "scripts" / "cpu_first_call_check.py",
         ROOT / "scripts" / "torch_mesh_check.py",
+        ROOT / "scripts" / "hybrid_moe_logits.py",
         ROOT / "examples" / "torch_train_lm.py",
         ROOT / "examples" / "torch_autotune_stage_graph.py",
         ROOT / "examples" / "torch_fleet_sim.py",

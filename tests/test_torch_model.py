@@ -179,11 +179,12 @@ def test_decode_on_a_bridged_reference_cache():
 
 
 def test_unported_family_and_int8_cache_raise():
-    """Every family of the reference is ported, so only an unknown family
-    raises (the name dates from when three were not ported; the int8
-    cache, ported since, is held in tests/test_torch_kv_int8.py)."""
+    """Every family of the reference is ported, and one of the port alone
+    (hybrid_moe), so only an unknown family raises (the name dates from
+    when three were not ported; the int8 cache, ported since, is held in
+    tests/test_torch_kv_int8.py)."""
     cfg = reduced_config("qwen3-0.6b")
     assert Model.FAMILIES == ("dense", "moe", "hybrid", "ssm", "audio",
-                              "vlm")
+                              "vlm", "hybrid_moe")
     with pytest.raises(ValueError, match="unknown family"):
         Model(dataclasses.replace(cfg, family="rnn"), device="cpu")
