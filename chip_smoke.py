@@ -10,8 +10,9 @@ Phases, in order; any failure exits non-zero:
      paths' shapes and timed beside its plain version, one PyTorch
      library call (where one computes the same function) and its bound:
      flash attention (bf16 tensor-core and fp32 scalar routes, at the
-     dense, hybrid, MoE, whisper and vision prefill shapes), the fused
-     RMSNorm, the two
+     dense, hybrid, MoE, whisper and vision prefill shapes), decode
+     attention at the two benchmark cells' decode shapes (a chat mix of
+     lengths, the rows past them NaN), the fused RMSNorm, the two
      SSD-scan passes on both routes (the intra pass, which also takes the
      chunk cumsum, and the inter pass, which also runs the chunk
      recurrence) and the composed SSD scan;
@@ -39,7 +40,9 @@ Phases, in order; any failure exits non-zero:
      llama-3.2-vision-90b at full width with its depth cut to 20 layers
      (one seeded (1, 1601, 8192) patches input, gates opened). Each
      engine's decode step is one CUDA graph, captured once and replayed
-     on every step but the first, and its tokens must equal those of the
+     on every step but the first, its decode attention launched by the
+     warm-up step and the capture alone (and by every step of the eager
+     engine), and its tokens must equal those of the
      same requests served with the eager step. Each of these models also
      gives its parameter count, its peak memory, its decode state per
      slot and a repeated 512-token prefill (448 for whisper), equal bit
@@ -113,8 +116,9 @@ Phases, in order; any failure exits non-zero:
      flash per qwen3 prefill; 6 flash and 38 of each SSD pass per zamba2
      prefill), then 16 greedy steps of ``build_serve_step``'s step; the
      logits, caches and greedy tokens held to the unsharded
-     ``Model.prefill`` / ``decode_step`` on the card (bitwise equality
-     printed), each call's time (CUDA events), launches and idle share
+     ``Model.prefill`` / ``decode_step`` on the card (the decode steps on
+     the plain attention route that the sharded step takes; bitwise
+     equality printed), each call's time (CUDA events), launches and idle share
      (torch.profiler) and peak memory beside the unsharded call's; then
      the dry run (``repro_torch.launch.dryrun.run_cell``) of qwen3-0.6b at
      prefill_32k and decode_32k on a fake (16, 16) mesh of 256 ranks, in a
@@ -207,6 +211,9 @@ from repro_torch.distributed.collectives import (cross_pod_grad_sync,
 from repro_torch.distributed.sharding import (FSDP_RULES, distribute_tree,
                                               tree_shardings)
 from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attention import ops as dec_ops
+from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -248,6 +255,11 @@ TOL = {torch.float32: dict(atol=2e-5, rtol=2e-4),
 STATE_TOL = dict(atol=1e-3, rtol=1e-2)
 MODEL_TOL = dict(atol=2e-4, rtol=2e-3)
 SERVE_TOL = dict(atol=2e-3, rtol=2e-2)
+#: decode attention against its plain version in fp32 on the same inputs
+#: (tests/test_torch_cuda.py: fp32 differs in the order of sums, bf16
+#: rounds once, its output)
+DECODE_ATTN_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-4),
+           torch.bfloat16: dict(atol=1e-4, rtol=4e-3)}
 #: the chunk cumsum against torch.cumsum (tests/test_torch_cuda.py)
 CUM_TOL = dict(atol=1e-5, rtol=0)
 #: calls each torch.profiler window of phase 5 covers
@@ -509,6 +521,63 @@ def check_flash(gen, b, s, h, hkv, d, dtype, scale=None):
         bound_ms=ms_bound, bound_by=bound_by)
 
 
+def decode_lengths(rng, b: int, s: int) -> np.ndarray:
+    """Attended positions - 1 of ``b`` slots of a chat mix at cache depth
+    ``s``: a prompt (lognormal, median 1,100, 64-3,500) and a point in its
+    output (lognormal, median 129, 16-512)."""
+    prompt = np.clip(rng.lognormal(np.log(1100), 0.6, b), 64, 3500)
+    out = np.clip(rng.lognormal(np.log(129), 0.6, b), 16, 512)
+    return np.minimum(prompt + rng.uniform(0, 1, b) * out, s - 1).astype(int)
+
+
+def check_decode(gen, b, s, h, hkv, d, dtype, scale=None):
+    """Decode attention at one cell's shape: q against K/V as the layer's
+    view of a stacked two-layer cache, chat-mix lengths, rows past them
+    poisoned with NaN (the kernel must read none), against the plain
+    version in fp32 on the same inputs (tests/test_torch_cuda.py's
+    DECODE_ATTN_TOL), timed; the bound is the live rows' bytes (and q, o)."""
+    rng = np.random.default_rng(b * s + h)
+    q = randn(gen, (b, 1, h, d), dtype)
+    k, v = (randn(gen, (2, b, s, hkv, d), dtype)[1] for _ in range(2))
+    lengths = decode_lengths(rng, b, s)
+    for r, n in enumerate(lengths):
+        k[r, n + 1:] = float("nan")
+        v[r, n + 1:] = float("nan")
+    length = torch.as_tensor(lengths, dtype=torch.int32, device="cuda")
+    out = decode_attention_cuda(q, k, v, length, scale=scale)
+    torch.cuda.synchronize()
+    want = decode_attention_ref(q.float(), k.float(), v.float(), length,
+                                scale=scale)
+    err = max_err(out, want, **DECODE_ATTN_TOL[dtype],
+                  what=f"decode attention b={b} s={s} h={h}/{hkv} d={d}")
+    check(torch.equal(out, decode_attention_cuda(q, k, v, length,
+                                                 scale=scale)),
+          "decode attention repeats bit for bit")
+    live = int(lengths.sum()) + b
+    ms_bound, bound_by = bound(4 * h * d * live,
+                               q.element_size() * (2 * live * hkv * d
+                                                   + 2 * b * h * d), dtype)
+    # the yardstick sees clean rows: the library's masked softmax would
+    # carry the NaNs through 0 * NaN
+    k.nan_to_num_(0.0)
+    v.nan_to_num_(0.0)
+    mask = (torch.arange(s, device="cuda")[None, :] <= length[:, None])
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    at = "" if scale is None else f" scale={scale:g}"
+    return dict(
+        shape=f"b={b} S={s} h={h} hkv={hkv} d={d}{at} {str(dtype)[6:]}, "
+              f"mean {live / b:.0f} live rows",
+        max_abs_err=err,
+        ms=time_ms(lambda: decode_attention_cuda(q, k, v, length,
+                                                 scale=scale)),
+        plain_ms=time_ms(lambda: decode_attention_ref(q, k, v, length,
+                                                      scale=scale)),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask[:, None, None, :], enable_gqa=True,
+            scale=scale)),
+        bound_ms=ms_bound, bound_by=bound_by)
+
+
 def check_rmsnorm(gen, shape, dtype):
     x = randn(gen, shape, dtype)
     r = randn(gen, shape, dtype)
@@ -766,6 +835,7 @@ def serve_hybrid():
         queue.submit(prompt, max_new_tokens=32)
     torch.cuda.synchronize()
     ssd_ops.intra_launches = ssd_ops.inter_launches = flash_ops.launches = 0
+    dec_ops.launches = 0
     t0 = time.perf_counter()
     results = engine.run(queue)
     wall = time.perf_counter() - t0
@@ -832,6 +902,7 @@ def serve_hybrid_moe():
         queue.submit(prompt, max_new_tokens=32)
     torch.cuda.synchronize()
     ssd_ops.intra_launches = ssd_ops.inter_launches = flash_ops.launches = 0
+    dec_ops.launches = 0
     real, pad = m2.ssd_real_tokens, m2.ssd_pad_tokens
     t0 = time.perf_counter()
     results = engine.run(queue)
@@ -863,18 +934,39 @@ def serve_hybrid_moe():
     return engine, results, launches, lengths, wall, pad / (real + pad)
 
 
+def decode_per_step(model) -> int:
+    """Decode-attention launches of one eager decode step: each decoder
+    block's self-attention over its cache (whisper's decoder layers are
+    cross blocks, whose self-attention runs plain; xLSTM has none)."""
+    cfg = model.cfg
+    if cfg.family in ("ssm", "audio"):
+        return 0
+    if cfg.family == "hybrid":
+        return int(model._shared_flags().sum())
+    if cfg.family == "hybrid_moe":
+        return model._mixer_kinds().count("attn")
+    return flash_per_prefill(model)
+
+
 def graph_against_eager(name, model, params, engine, results, prompts,
                         extra=None) -> float:
     """``engine`` must have captured its decode step once and replayed it
-    on every step but the first, and served the tokens that the same
-    ``prompts`` (32 new tokens each) get from an engine whose decode step
-    runs eagerly (the engine's private seam). Returns the eager engine's
-    wall ms per decode step."""
+    on every step but the first, its decode attention launched by the
+    eager warm-up step and the capture alone (the launch count set to 0
+    before it ran), and served the tokens that the same ``prompts`` (32
+    new tokens each) get from an engine whose decode step runs eagerly
+    (the engine's private seam), which launches it on every step.
+    Returns the eager engine's wall ms per decode step."""
     check(engine.decode_graph_captures == 1 and engine.decode_graph_replays
           == engine.decode_steps - 1,
           f"{name}: one decode graph, replayed on {engine.decode_steps - 1} "
           f"steps, got {engine.decode_graph_captures} captures and "
           f"{engine.decode_graph_replays} replays")
+    per_step = decode_per_step(model)
+    check(dec_ops.launches == 2 * per_step,
+          f"{name}: decode attention launched {dec_ops.launches} times by "
+          f"the warm-up step and the capture, want 2 x {per_step}")
+    dec_ops.launches = 0
     eager = ServeEngine(model, params, n_slots=engine.n_slots,
                         max_len=engine.max_len)
     eager._graphable = False
@@ -885,6 +977,10 @@ def graph_against_eager(name, model, params, engine, results, prompts,
                                                extra_inputs=extra or {})}
     check({r.uid: r.tokens for r in results} == want,
           f"{name}: the decode graph serves the eager step's tokens")
+    check(dec_ops.launches == per_step * eager.decode_steps,
+          f"{name}: the eager engine launched decode attention "
+          f"{dec_ops.launches} times, want {per_step} x "
+          f"{eager.decode_steps} steps")
     ms = eager.decode_s / eager.decode_steps * 1e3
     del eager
     torch.cuda.empty_cache()
@@ -1173,7 +1269,7 @@ def serve_model(arch):
     for prompt in prompts:
         queue.submit(prompt, max_new_tokens=32)
     torch.cuda.synchronize()
-    flash_ops.launches = 0
+    flash_ops.launches = dec_ops.launches = 0
     t0 = time.perf_counter()
     results = engine.run(queue, extra_inputs=extra)
     wall = time.perf_counter() - t0
@@ -2120,7 +2216,7 @@ def kernel_counts() -> tuple:
 
 
 def zero_kernel_counts() -> None:
-    flash_ops.launches = rms_ops.launches = 0
+    flash_ops.launches = rms_ops.launches = dec_ops.launches = 0
     ssd_ops.intra_launches = ssd_ops.inter_launches = 0
 
 
@@ -2166,9 +2262,13 @@ def dist_serve_model(mesh, arch):
     prefill_plain()                                          # warm
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    # the sharded serve step attends its DTensor cache by plain attention
+    # (the decode kernel takes plain tensors): the unsharded steps it is
+    # held to take the same route
+    plain_decode = Model(dataclasses.replace(cfg, attn_impl="plain"))
     want, want_tokens, want_cache, plain_prefill_ms, plain_steps = \
         serve_greedy(prefill_plain,
-                     lambda c, t: model.decode_step(params, c, t))
+                     lambda c, t: plain_decode.decode_step(params, c, t))
     plain_peak = torch.cuda.max_memory_allocated()
 
     shape = lambda kind: Shape(kind, max_len, SERVE_DIST_BATCH, kind)
@@ -2831,6 +2931,14 @@ def main() -> int:
                  check_flash(gen, 1, 512, 32, 32, 64, torch.float32)]
     print_rows("flash_attention", flash_rows)
     print_rows("flash_attention", flash_f32)
+    # the two cells' decode steps: granite-moe-3b at 32 slots (24/8, d 64)
+    # and granite-4.0-h at 64 (32/8, d 128, scale 1/128), 4,096 deep
+    decode_rows = [check_decode(gen, 32, 4096, 24, 8, 64, dtype)
+                   for dtype in (torch.bfloat16, torch.float32)]
+    decode_rows += [check_decode(gen, 64, 4096, 32, 8, 128, dtype,
+                                 scale=1 / 128)
+                    for dtype in (torch.bfloat16, torch.float32)]
+    print_rows("decode_attention", decode_rows)
     rms_rows = [check_rmsnorm(gen, shape, dtype)
                 for shape in ((2048, 1024), (2, 64, 128), (4, 100, 256),
                               (512, 384), (1, 7, 64))
@@ -2887,7 +2995,8 @@ def main() -> int:
     serving["int8 qwen3-0.6b"] = int8_against_bf16(model, params)
     rms_launches = rmsnorm_entry_point()
     print("where the time goes (qwen3-0.6b bf16, warm):")
-    where_time_goes(model, params, engine, {"flash attention": "flash_fwd"})
+    where_time_goes(model, params, engine, {"flash attention": "flash_fwd",
+                                            "decode attention": "decode_attn"})
     del model, params, engine
     torch.cuda.empty_cache()
 
@@ -2899,7 +3008,8 @@ def main() -> int:
     traces = where_time_goes(model, params, engine,
                              {"ssd_intra": "ssd_intra",
                               "ssd_inter": "ssd_inter",
-                              "flash attention": "flash_fwd"})
+                              "flash attention": "flash_fwd",
+                              "decode attention": "decode_attn"})
     # the chunk cumsum is folded into the intra pass: torch's scan kernel
     # (tensor_kernel_scan_outer_dim) must not appear in the prefill. The
     # chunk recurrence is folded into the inter pass: the torch loop's
@@ -2941,7 +3051,8 @@ def main() -> int:
         if arch == "qwen2-moe-a2.7b":
             print(f"where the time goes ({arch} bf16, warm):")
             where_time_goes(model, params, engine,
-                            {"flash attention": "flash_fwd"})
+                            {"flash attention": "flash_fwd",
+                             "decode attention": "decode_attn"})
         else:
             serving[f"int8 {arch}"] = int8_against_bf16(model, params)
         del model, params, engine
@@ -3120,6 +3231,20 @@ def main() -> int:
     kernels[2]["cumsum_ms"] = ssd_rows[0][0]["cumsum_ms"]
     kernels[3]["fp32"] = {k: ssd_rows[1][1][k] for k in keys}
     kernels[3]["recurrence_ms"] = ssd_rows[0][1]["recurrence_ms"]
+    # decode attention at granite-moe-3b's decode shape, its fp32 route and
+    # granite-4.0-h's shape beside it; its launches are checked per served
+    # model (graph_against_eager)
+    kernels.append(dict(
+        name="decode_attention", route="cuda",
+        design="split-KV over 256-position chunks, one block per (slot, kv "
+               "head, chunk) holding the query group; partials merged in "
+               "chunk order",
+        source="src/repro_torch/kernels/decode_attention/csrc/"
+               "decode_attention.cu",
+        replaces="none: the reference decodes with plain attention",
+        **{k: decode_rows[0][k] for k in keys},
+        fp32={k: decode_rows[1][k] for k in keys},
+        hybrid_shapes=[{k: row[k] for k in keys} for row in decode_rows[2:]]))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": train}))
     print(json.dumps({"kernels": kernels}))

@@ -1,4 +1,5 @@
-"""Hand-written Hopper kernels of the port, one package per TPU kernel.
+"""Hand-written Hopper kernels of the port: one package per TPU kernel of
+the reference, and one (decode attention) that replaces none.
 
   flash_attention/  causal GQA flash attention, CUDA C++ for sm_90a
                     (replaces repro/kernels/flash_attention)
@@ -6,6 +7,9 @@
                     (replaces repro/kernels/rmsnorm)
   ssd_scan/         the Mamba2 SSD scan's intra- and inter-chunk passes,
                     CUDA C++ for sm_90a (replaces repro/kernels/ssd_scan)
+  decode_attention/ grouped split-KV decode attention over the KV cache,
+                    CUDA C++ for sm_90a (replaces no TPU kernel: the
+                    reference decodes with plain attention)
 
 Each package keeps the reference's split: ``kernel.py`` (the launch),
 ``ref.py`` (plain torch) and ``ops.py`` (dispatch). ``ops`` takes the

@@ -27,6 +27,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor._utils import \
     compute_local_shape_and_global_offset
 
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.models.attention import (_BSHD, _project_qkv, _sdpa_plain,
                                           attention_axes,
                                           make_attention_params, sdpa)
@@ -365,9 +366,12 @@ def decode_decoder_block(params: Tree, x: torch.Tensor, cache: Dict,
     a one-hot row: the slot at ``length`` is zero, so both give the same
     cache. A row already past the end (only an idle slot
     gets there) rewrites its last position, where the reference drops the
-    write; no live request reads it. A quantized cache is dequantized
-    whole to ``x``'s dtype for the attention, as in the reference. The
-    block's aux loss is dropped.
+    write; no live request reads it. With ``attn_impl="kernel"`` an
+    unquantized cache that is not a DTensor is attended by the decode
+    attention kernel (its plain version on the CPU); every other cache
+    through plain attention over the mask ``arange(S) <= length``. A
+    quantized cache is dequantized whole to ``x``'s dtype for the
+    attention, as in the reference. The block's aux loss is dropped.
     """
     b = x.shape[0]
     with span("rt.attn"):
@@ -389,10 +393,15 @@ def decode_decoder_block(params: Tree, x: torch.Tensor, cache: Dict,
             _write_at(cache["k"], at, k_new[:, 0])
             _write_at(cache["v"], at, v_new[:, 0])
             k, v = cache["k"], cache["v"]
-        valid = (torch.arange(max_len, device=x.device)[None, :]
-                 <= length[:, None])
-        o = _sdpa_plain(q, k, v, causal=False, kv_len_mask=valid,
-                        scale=cfg.attn_scale)
+        if (cfg.attn_impl == "kernel" and "k_scale" not in cache
+                and not any(isinstance(t, DTensor) for t in (q, k))):
+            # each slot's live rows, read in place once per query group
+            o = decode_attention(q, k, v, length, scale=cfg.attn_scale)
+        else:
+            valid = (torch.arange(max_len, device=x.device)[None, :]
+                     <= length[:, None])
+            o = _sdpa_plain(q, k, v, causal=False, kv_len_mask=valid,
+                            scale=cfg.attn_scale)
         x = x + residual(o.reshape(b, 1, cfg.n_heads * cfg.head_dim)
                          @ params["attn"]["wo"], cfg)
     f, _ = _ffn(params, x, cfg)

@@ -10,6 +10,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels.decode_attention import ops as dec_ops
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.rmsnorm import ops as rms_ops
@@ -130,6 +132,127 @@ def test_flash_kernel_rejects_unsupported_head_dim(cuda):
     q = torch.zeros((1, 8, 2, 48), device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         flash_ops.flash_attention(q, q, q)
+
+
+# --------------------------------------------------------------------------
+# decode attention: one query position per slot against the cache
+# --------------------------------------------------------------------------
+
+#: the kernel against the plain version computed in fp32 on the same
+#: inputs. fp32: the two differ only in the order of the sums and in expf
+#: (seen ~1e-6). bf16: the kernel's scores, softmax and P V are fp32 and it
+#: rounds once, its output, to bf16 (2^-9 relative); the plain version in
+#: bf16 rounds its scores and its probabilities to bf16 too, so it is not
+#: the yardstick here
+DECODE_ATTN_TOL = {torch.float32: TOL[torch.float32],
+                   torch.bfloat16: dict(atol=1e-4, rtol=4e-3)}
+#: both cells' decode shapes (granite-moe-3b: 32 slots, 24/8, d 64;
+#: granite-4.0-h: 64 slots, 32/8, d 128, scale 1/128) at a shorter cache,
+#: then d 32, a group of 8 (the vision model), of 9 (two head tiles) and
+#: MHA, with (b, S, h, hkv, d, scale)
+DEC_SHAPES = [(32, 1100, 24, 8, 64, None), (64, 600, 32, 8, 128, 1 / 128),
+              (4, 700, 16, 8, 32, None), (3, 513, 64, 8, 128, None),
+              (2, 300, 36, 4, 128, None), (5, 257, 16, 16, 64, None)]
+
+
+def _decode_inputs(rng, b, S, h, hkv, d, dtype, device, poison=None):
+    """q, and K/V as the layer's view of a stacked two-layer cache, with
+    ragged lengths (0, S - 1 and one idle slot past the end among them);
+    rows past each slot's length hold ``poison`` where given."""
+    q = _normal(rng, (b, 1, h, d), dtype, device)
+    k, v = (_normal(rng, (2, b, S, hkv, d), dtype, device)[1]
+            for _ in range(2))
+    lengths = rng.integers(0, S, b)
+    lengths[0] = 0
+    lengths[1 % b] = S - 1
+    lengths[2 % b] = S + 5
+    if poison is not None:
+        for r, n in enumerate(lengths):
+            k[r, n + 1:] = poison
+            v[r, n + 1:] = poison
+    return q, k, v, torch.tensor(lengths, dtype=torch.int32, device=device)
+
+
+@pytest.mark.parametrize("b,S,h,hkv,d,scale", DEC_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("poison", [None, float("nan"), 1e4])
+def test_decode_attention_kernel_matches_plain(cuda, b, S, h, hkv, d, scale,
+                                               dtype, poison):
+    """Ragged lengths, rows past them poisoned: the kernel reads none of
+    them, and matches the plain version (DECODE_ATTN_TOL); one launch counted."""
+    rng = np.random.default_rng(21)
+    q, k, v, length = _decode_inputs(rng, b, S, h, hkv, d, dtype, cuda,
+                                     poison)
+    before = dec_ops.launches
+    out = dec_ops.decode_attention(q, k, v, length, scale=scale)
+    torch.cuda.synchronize()
+    assert dec_ops.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    assert torch.isfinite(out).all()
+    want = decode_attention_ref(q.float(), k.float(), v.float(), length,
+                                scale=scale)
+    _close(out, want, DECODE_ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_repeats_bit_for_bit(cuda, dtype):
+    """The partials are merged in chunk order, without atomics: two calls
+    give the same bits."""
+    rng = np.random.default_rng(22)
+    q, k, v, length = _decode_inputs(rng, 32, 4096, 24, 8, 64, dtype, cuda)
+    a = dec_ops.decode_attention(q, k, v, length)
+    b = dec_ops.decode_attention(q, k, v, length)
+    assert torch.equal(a, b)
+
+
+def test_decode_attention_kernel_replays_in_a_graph(cuda):
+    """Captured into a CUDA graph, the call replays to the eager call's
+    bits, also after the lengths are rewritten in place: nothing about the
+    lengths is fixed at capture."""
+    rng = np.random.default_rng(23)
+    q, k, v, length = _decode_inputs(rng, 64, 2048, 32, 8, 128,
+                                     torch.bfloat16, cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        dec_ops.decode_attention(q, k, v, length, scale=1 / 128)   # warm
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = dec_ops.launches
+    with torch.cuda.graph(graph):
+        out = dec_ops.decode_attention(q, k, v, length, scale=1 / 128)
+    assert dec_ops.launches == before + 1
+    for lengths in (length.clone(), torch.from_numpy(
+            rng.integers(0, 2100, 64)).to(cuda, torch.int32)):
+        length.copy_(lengths)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, dec_ops.decode_attention(q, k, v, length,
+                                                         scale=1 / 128))
+    assert dec_ops.launches == before + 3
+
+
+def test_decode_attention_kernel_rejects_what_it_does_not_take(cuda):
+    """fp16, a head dim outside (32, 64, 128), K/V rows off 16-byte
+    boundaries and int64 lengths raise, and nothing launches."""
+    length = torch.tensor([3, 5], dtype=torch.int32, device=cuda)
+    q = torch.zeros((2, 1, 4, 64), dtype=torch.bfloat16, device=cuda)
+    kv = torch.zeros((2, 16, 2, 64), dtype=torch.bfloat16, device=cuda)
+    wide = torch.zeros((2, 16, 2, 72), dtype=torch.bfloat16, device=cuda)
+    loose = torch.zeros((2, 16, 2, 68), dtype=torch.bfloat16, device=cuda)
+    before = dec_ops.launches
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        dec_ops.decode_attention(q.half(), kv.half(), kv.half(), length)
+    q48 = torch.zeros((2, 1, 4, 48), device=cuda)
+    kv48 = torch.zeros((2, 16, 2, 48), device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        dec_ops.decode_attention(q48, kv48, kv48, length)
+    for bad in (wide[..., 4:68], loose[..., :64]):
+        with pytest.raises(ValueError, match="16-byte"):
+            dec_ops.decode_attention(q, bad, kv, length)
+    with pytest.raises(TypeError, match="int32"):
+        dec_ops.decode_attention(q, kv, kv, length.long())
+    assert dec_ops.launches == before
 
 
 @pytest.mark.parametrize("shape", [(2, 64, 128), (4, 100, 256), (512, 384),
@@ -334,6 +457,10 @@ def _refused_calls(cuda):
     return {
         "flash_attention": (lambda: flash_ops.flash_attention(q, q, q),
                             lambda: flash_ops.launches),
+        "decode_attention": (lambda: dec_ops.decode_attention(
+            q[:, :1], q, q, torch.tensor([63], dtype=torch.int32,
+                                         device=cuda)),
+                             lambda: dec_ops.launches),
         "fused_rmsnorm": (lambda: rms_ops.fused_rmsnorm(x, r, w),
                           lambda: rms_ops.launches),
         "ssd_scan": (lambda: ssd_ops.ssd_scan(xh, bm, cm, log_a, dt,
@@ -347,8 +474,9 @@ def _refused_calls(cuda):
                       lambda: ssd_ops.inter_launches)}
 
 
-@pytest.mark.parametrize("name", ["flash_attention", "fused_rmsnorm",
-                                  "ssd_scan", "ssd_intra", "ssd_inter"])
+@pytest.mark.parametrize("name", ["flash_attention", "decode_attention",
+                                  "fused_rmsnorm", "ssd_scan", "ssd_intra",
+                                  "ssd_inter"])
 def test_kernel_entry_points_refuse_autograd(cuda, name):
     """Under grad, with an input that requires grad, the call raises and
     launches nothing; under no_grad the same call launches its kernel."""
