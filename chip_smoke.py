@@ -231,7 +231,7 @@ from repro_torch.models.attention import sdpa
 from repro_torch.models import moe
 from repro_torch.models.mamba2 import chunk_recurrence
 from repro_torch.models.model import Model
-from repro_torch.models.transformer import layer_slice, tree_leaves, tree_map
+from repro_torch.models.transformer import tree_leaves, tree_map
 from repro_torch.serverless import (WORKLOADS, SimulatedPlatform,
                                     StochasticBackend, TorchMeasuredOracle,
                                     layered_workflow, workload_slo)
@@ -799,7 +799,7 @@ def moe_parity(arch):
                           what=f"reduced {arch} logits, card against CPU"),
                   max_err(want_aux.cpu(), cpu_aux, **MODEL_TOL,
                           what=f"reduced {arch} aux, card against CPU"))
-    mp = layer_slice(params_cpu["layers"], 0)["moe"]
+    mp = tree_map(lambda t: t[0], params_cpu["layers"]["moe"])
     x = torch.randn((1, 24, cfg.d_model), generator=gen).repeat(2, 1, 1)
     xf = x.reshape(-1, cfg.d_model)
     tok = {}
@@ -851,7 +851,7 @@ def serve_hybrid():
         for name, t in engine.cache[part].items():
             check(bool(torch.isfinite(t).all()),
                   f"finite cache {part}/{name}")
-    n_apps = int(model._shared_flags().sum())
+    n_apps = count_blocks(model, "attn")
     for name, per in (("ssd_intra", cfg.n_layers), ("ssd_inter", cfg.n_layers),
                       ("flash_attention", n_apps)):
         check(launches[name] == per * engine.n_prefills,
@@ -917,16 +917,14 @@ def serve_hybrid_moe():
         for name, t in engine.cache[part].items():
             check(bool(torch.isfinite(t).all()),
                   f"granite-4.0-h-small: finite cache {part}/{name}")
-    kinds = model._mixer_kinds()
-    for name, per in (("ssd_intra", kinds.count("mamba")),
-                      ("ssd_inter", kinds.count("mamba")),
-                      ("flash_attention", kinds.count("attn"))):
+    n_mamba, n_attn = (count_blocks(model, k) for k in ("mamba", "attn"))
+    for name, per in (("ssd_intra", n_mamba), ("ssd_inter", n_mamba),
+                      ("flash_attention", n_attn)):
         check(launches[name] == per * engine.n_prefills,
               f"granite-4.0-h-small: {name} launches {launches[name]} == "
               f"{per} x {engine.n_prefills} prefills")
     want_pad = sum(-(-n // 128) * 128 - n for n in lengths if n > 128)
-    check((real, pad) == (kinds.count("mamba") * sum(lengths),
-                          kinds.count("mamba") * want_pad),
+    check((real, pad) == (n_mamba * sum(lengths), n_mamba * want_pad),
           f"granite-4.0-h-small: scanned {real} real and {pad} padded "
           f"positions")
     graph_against_eager("granite-4.0-h-small", model, params, engine,
@@ -934,18 +932,16 @@ def serve_hybrid_moe():
     return engine, results, launches, lengths, wall, pad / (real + pad)
 
 
+def count_blocks(model, *kinds) -> int:
+    """The blocks of ``model``'s layer plan of any of ``kinds``."""
+    return sum(layer.kind in kinds for layer in model.layer_plan())
+
+
 def decode_per_step(model) -> int:
     """Decode-attention launches of one eager decode step: each decoder
     block's self-attention over its cache (whisper's decoder layers are
     cross blocks, whose self-attention runs plain; xLSTM has none)."""
-    cfg = model.cfg
-    if cfg.family in ("ssm", "audio"):
-        return 0
-    if cfg.family == "hybrid":
-        return int(model._shared_flags().sum())
-    if cfg.family == "hybrid_moe":
-        return model._mixer_kinds().count("attn")
-    return flash_per_prefill(model)
+    return count_blocks(model, "attn")
 
 
 def graph_against_eager(name, model, params, engine, results, prompts,
@@ -1156,14 +1152,10 @@ def stub_input(cfg, b: int, seed: int, device) -> dict:
 
 def flash_per_prefill(model) -> int:
     """Flash launches of one prefill or forward: each causal
-    self-attention (the encoder and the cross layers run plain)."""
-    cfg = model.cfg
-    if cfg.family == "ssm":
-        return 0
-    if cfg.family == "vlm":
-        nseg, nself = model._vlm_seg()
-        return nseg * nself
-    return cfg.n_layers
+    self-attention, a decoder block's or a whisper decoder layer's (the
+    encoder and the attention to its states or to the patches run
+    plain)."""
+    return count_blocks(model, "attn", "cross")
 
 
 def family_parity(arch):

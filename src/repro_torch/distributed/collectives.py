@@ -28,7 +28,7 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.distributed.sharding import mesh_axes
-from repro_torch.models.transformer import tree_map
+from repro_torch.tree import tree_map
 
 Tree = Any
 

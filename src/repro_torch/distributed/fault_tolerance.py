@@ -29,7 +29,7 @@ import torch
 from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.distributed.sharding import ShardingRules, tree_shardings
-from repro_torch.models.transformer import tree_map
+from repro_torch.tree import tree_map
 from repro_torch.training.checkpoint import (latest_step, restore_checkpoint,
                                              save_checkpoint)
 

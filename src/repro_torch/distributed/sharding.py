@@ -37,6 +37,8 @@ import torch
 from torch.distributed.tensor import (DTensor, Partial, Placement,
                                       Replicate, Shard, distribute_tensor)
 
+from repro_torch.tree import tree_map
+
 Tree = Any
 MeshAxes = Union[None, str, Tuple[str, ...]]
 
@@ -196,7 +198,6 @@ def logical_to_sharding(axes_tree: Tree, shape_tree: Tree, mesh,
                         rules: ShardingRules) -> Tree:
     """Mirror an axes tree + a tree of shaped leaves (tensors, meta
     tensors) into Shardings."""
-    from repro_torch.models.transformer import tree_map
     return tree_map(lambda axes, t: rules.sharding(axes, t.shape, mesh),
                     axes_tree, shape_tree)
 
@@ -220,7 +221,6 @@ def distribute_tree(tree: Tree, shardings: Tree) -> Tree:
     tensor by ``distribute_tensor`` (every rank passes the same full
     tensor), a DTensor (a step's output fed to the next step) by
     ``redistribute``."""
-    from repro_torch.models.transformer import tree_map
     return tree_map(lambda t, s: t.redistribute(s.mesh, s.placements)
                     if isinstance(t, DTensor)
                     else distribute_tensor(t, s.mesh, s.placements),

@@ -29,7 +29,7 @@ from repro_torch.distributed.sharding import (FSDP_RULES, ShardingRules,
                                               distribute_tree,
                                               tree_shardings)
 from repro_torch.models.model import Model, ModelConfig
-from repro_torch.models.transformer import tree_map
+from repro_torch.tree import tree_map
 from repro_torch.training.data import batch_axes_for, batch_specs
 from repro_torch.training.optimizer import (AdamWConfig, adamw_init,
                                             train_state_axes)

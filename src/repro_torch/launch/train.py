@@ -26,7 +26,7 @@ from repro_torch.configs import (ARCH_IDS, SHAPES, get_config,
 from repro_torch.distributed.fault_tolerance import (ResilientLoop,
                                                      StepWatchdog)
 from repro_torch.models.model import REMAT, Model
-from repro_torch.models.transformer import tree_leaves
+from repro_torch.tree import tree_leaves
 from repro_torch.training.data import SyntheticDataset
 from repro_torch.training.optimizer import AdamWConfig, adamw_init
 from repro_torch.training.train_step import make_train_step

@@ -1,5 +1,5 @@
-"""LM substrate of the port: the dense decoder and hybrid (Mamba2 +
-shared attention) families in plain torch around the kernels.
+"""LM substrate of the port: the seven model families (one class each,
+``families.py``) in plain torch around the kernels.
 
 Params are nested dicts of tensors in the reference layout; the layer
 stack carries a leading ``layers`` axis that the model loops over.

@@ -17,6 +17,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import constrain, per_shard
 from repro_torch.models.layers import apply_rope, dense_init, rms_norm
 
 NEG_INF = -1e30
@@ -61,9 +62,6 @@ def _split_heads(t: torch.Tensor, n: int, head_dim: int) -> torch.Tensor:
     """(b, s, n * head_dim) viewed as (b, s, n, head_dim). On a mesh the
     heads shard over the model axis only where ``n`` divides it; else the
     projection is replicated over it first."""
-    # imported here: repro_torch.distributed imports the training code,
-    # which imports this module
-    from repro_torch.distributed.sharding import constrain
     b, s = t.shape[:2]
     t = constrain(t, ("batch", "act_seq", "heads_act", None),
                   shape=(b, s, n, head_dim))
@@ -123,9 +121,6 @@ def _sdpa_plain(q, k, v, *, causal: bool, q_offset: int = 0,
     axes: over heads where they divide the model axis, else over the
     query sequence.
     """
-    # imported here: repro_torch.distributed imports the training code,
-    # which imports this module
-    from repro_torch.distributed.sharding import constrain, per_shard
     b, sq, h, d = q.shape
     hkv = k.shape[2]
     group = h // hkv
@@ -195,9 +190,6 @@ def sdpa(q, k, v, *, causal: bool, impl: str = "plain",
     if impl not in IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}; one of {IMPLS}")
     if impl == "kernel" and causal:
-        # imported here: repro_torch.distributed imports the training code,
-        # which imports this module
-        from repro_torch.distributed.sharding import per_shard
         from repro_torch.kernels.flash_attention import ops as flash_ops
         # on a mesh each rank runs the kernel on its local (batch, head)
         # shards; contiguous head shards keep GQA's groups whole when both

@@ -37,6 +37,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import constrain, per_shard
 from repro_torch.models.layers import dense_init, normal, rms_norm
 
 Tree = Dict[str, torch.Tensor]
@@ -132,9 +133,6 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv along seq. x: (b, s, ch), w: (k, ch). On a
     mesh it runs on the local (batch, channel) shards."""
-    # imported here: repro_torch.distributed imports the training code,
-    # which imports the models
-    from repro_torch.distributed.sharding import per_shard
     return per_shard(_causal_conv_local, (x, w),
                      (("b", None, "c"), (None, "c")), ("b", None, "c"))
 
@@ -280,7 +278,6 @@ def apply_mamba2(params: Tree, x: torch.Tensor, cfg: SSMConfig,
     # shards, the batch pinned over the data axes (the projections' GEMMs
     # may leave it whole) and the heads over the model axis; B and C carry
     # no head dim, so they replicate over heads
-    from repro_torch.distributed.sharding import constrain, per_shard
     xh = constrain(xr.reshape(bsz, s, h, p), ("batch", "act_seq", "inner",
                                              None))
     pad = _scan_length(s, cfg) - s
@@ -316,9 +313,6 @@ def apply_mamba2_with_state(params: Tree, x: torch.Tensor, cfg: SSMConfig,
     conv window is the pre-conv inputs of the last true positions."""
     out, h_last, xr_pre = apply_mamba2(params, x, cfg, use_kernel=use_kernel,
                                        return_state=True, eps=eps)
-    # imported here: repro_torch.distributed imports the training code,
-    # which imports this module
-    from repro_torch.distributed.sharding import per_shard
     k = cfg.conv_kernel
     conv = xr_pre[:, -(k - 1):, :]
     pad = (k - 1) - conv.shape[1]

@@ -27,7 +27,8 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor._utils import \
     compute_local_shape_and_global_offset
 
-from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.distributed.sharding import per_shard, replicated
+from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.models.attention import (_BSHD, _project_qkv, _sdpa_plain,
                                           attention_axes,
                                           make_attention_params, sdpa)
@@ -36,6 +37,7 @@ from repro_torch.models.layers import (apply_mlp, apply_norm, make_mlp_params,
 from repro_torch.models.moe import (MoEConfig, apply_moe, make_moe_params,
                                     moe_axes)
 from repro_torch.tracing import span
+from repro_torch.tree import tree_leaves, tree_map  # noqa: F401 re-exported
 
 Tree = Dict[str, object]
 
@@ -75,25 +77,6 @@ def residual(out: torch.Tensor, cfg: BlockConfig) -> torch.Tensor:
 # parameter trees (nested dicts of tensors)
 # --------------------------------------------------------------------------
 
-def tree_map(fn: Callable, *trees):
-    """Apply ``fn`` leaf-wise over nested dicts and lists of the same
-    structure (a list is a node, as in a JAX pytree; a tuple is a leaf)."""
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
-    if isinstance(first, list):
-        return [tree_map(fn, *parts) for parts in zip(*trees)]
-    return fn(*trees)
-
-
-def tree_leaves(tree) -> List[torch.Tensor]:
-    if isinstance(tree, dict):
-        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
-    if isinstance(tree, list):
-        return [leaf for v in tree for leaf in tree_leaves(v)]
-    return [tree]
-
-
 def stack_params(n, maker: Callable[[], Tree]) -> Tree:
     """``n`` independently initialised copies of ``maker()`` stacked on a
     leading ``layers`` axis; ``n`` may be a tuple of sizes, for stacks
@@ -123,16 +106,12 @@ def prepend_axis(axes, name: str = "layers"):
     return tree_map(lambda t: (name,) + t, axes)
 
 
-def layer_slice(tree: Tree, i: int) -> Tree:
-    return tree_map(lambda x: x[i], tree)
-
-
 def unstack_params(tree: Tree, n: int) -> List[Tree]:
     """The ``n`` per-layer trees of a stacked tree, as views. Under
     autograd each leaf's gradient comes back through one ``unbind``,
     whose backward stacks the layers' gradients once; indexing each layer
-    (:func:`layer_slice`) would give every layer a zero-filled gradient
-    of the whole stack to add up, n times the stack's size in traffic."""
+    would give every layer a zero-filled gradient of the whole stack to
+    add up, n times the stack's size in traffic."""
     parts = tree_map(torch.unbind, tree)
     return [tree_map(lambda ts: ts[i], parts) for i in range(n)]
 
@@ -176,9 +155,6 @@ def _ffn(params: Tree, x: torch.Tensor, cfg: BlockConfig
     tokens, the row map written in place, the gathers and sums of
     ``_Gather`` / ``_Combine``) has no DTensor sharding strategy."""
     if cfg.moe is not None:
-        # imported here: repro_torch.distributed imports the training
-        # code, which imports this module
-        from repro_torch.distributed.sharding import replicated
         with span("rt.moe"):
             h = apply_norm(params["norm2"], x, cfg.norm)
             return replicated(apply_moe, params["moe"], h, cfg.moe)
@@ -287,9 +263,6 @@ def _prefill_cache(k: torch.Tensor, v: torch.Tensor, max_len: int,
     of zeros ``max_len`` deep (int8 and fp16 scales if ``quantized``). On
     a mesh each rank writes its local (batch, head) shards, and the cache
     comes back placed as k and v are, its sequence whole."""
-    # imported here: repro_torch.distributed imports the training code,
-    # which imports this module
-    from repro_torch.distributed.sharding import per_shard
 
     def fill(k, v):
         b, s = k.shape[:2]
@@ -396,7 +369,8 @@ def decode_decoder_block(params: Tree, x: torch.Tensor, cache: Dict,
         if (cfg.attn_impl == "kernel" and "k_scale" not in cache
                 and not any(isinstance(t, DTensor) for t in (q, k))):
             # each slot's live rows, read in place once per query group
-            o = decode_attention(q, k, v, length, scale=cfg.attn_scale)
+            o = decode_ops.decode_attention(q, k, v, length,
+                                            scale=cfg.attn_scale)
         else:
             valid = (torch.arange(max_len, device=x.device)[None, :]
                      <= length[:, None])

@@ -28,6 +28,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import per_shard, replicated
 from repro_torch.models.layers import dense_init, normal, rms_norm
 from repro_torch.models.mamba2 import _causal_conv, chunk_len
 
@@ -75,9 +76,6 @@ def make_mlstm_params(gen, d_model: int, cfg: XLSTMConfig, dtype,
 def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
     """``F.logsigmoid``; a DTensor gate runs it replicated, as DTensor has
     no sharding strategy for its backward (``aten.log_sigmoid_backward``)."""
-    # imported here: repro_torch.distributed imports the training code,
-    # which imports the models
-    from repro_torch.distributed.sharding import replicated
     return replicated(F.logsigmoid, x)
 
 
@@ -216,7 +214,6 @@ def apply_mlstm(params: Tree, x: torch.Tensor, cfg: XLSTMConfig,
     gates = xc.float() @ params["w_if"] + params["b_if"]
     i_pre, f_pre = gates.chunk(2, dim=-1)                          # (b,s,h)
     # on a mesh the cell runs on the local (batch, head) shards
-    from repro_torch.distributed.sharding import per_shard
     qkv, gate = ("b", None, "h", None), ("b", None, "h")
     roles = (qkv, qkv, qkv, gate, gate)
     if s > MLSTM_CHUNK_THRESHOLD or return_state:
@@ -236,9 +233,6 @@ def apply_mlstm_with_state(params: Tree, x: torch.Tensor, cfg: XLSTMConfig
                            ) -> Tuple[torch.Tensor, Tree]:
     """Prefill entry point: full-sequence output + decode-ready cache
     (the last ``conv_kernel - 1`` conv inputs, zero-padded on the left)."""
-    # imported here: repro_torch.distributed imports the training code,
-    # which imports this module
-    from repro_torch.distributed.sharding import per_shard
     out, state, xm = apply_mlstm(params, x, cfg, return_state=True)
     k = cfg.conv_kernel
     conv = xm[:, -(k - 1):, :]
@@ -376,9 +370,6 @@ def apply_slstm(params: Tree, x: torch.Tensor, cfg: XLSTMConfig,
     """Full-sequence sLSTM recurrence + FFN. x: (b, s, d). One step per
     token, each about 15 small ops: the host's launch cost, not the
     device, bounds it on the card."""
-    # imported here: repro_torch.distributed imports the training code,
-    # which imports the models
-    from repro_torch.distributed.sharding import per_shard
     b, s, d = x.shape
     # on a mesh the gates are regrouped on the local batch shard: the
     # regrouping's backward would flatten a sharded dim

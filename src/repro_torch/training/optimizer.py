@@ -14,7 +14,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.models.transformer import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 Tree = Dict[str, object]
 

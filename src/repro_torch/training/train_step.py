@@ -16,7 +16,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from repro_torch.kernels import NO_BACKWARD
-from repro_torch.models.transformer import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map
 from repro_torch.training.optimizer import AdamWConfig, adamw_update
 
 Tree = Dict[str, object]

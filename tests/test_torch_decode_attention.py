@@ -82,8 +82,8 @@ def test_decode_takes_the_entry_point_where_the_kernel_route_applies(
     entry point once per block step; the plain route and the int8 cache
     (dequantized whole, as in the reference) do not call it."""
     calls = []
-    real = tf.decode_attention
-    monkeypatch.setattr(tf, "decode_attention",
+    real = tf.decode_ops.decode_attention
+    monkeypatch.setattr(tf.decode_ops, "decode_attention",
                         lambda *a, **k: calls.append(a) or real(*a, **k))
     cfg = _block(24, 8, 64, None, impl, moe=True)
     gen = torch.Generator().manual_seed(1)

@@ -38,7 +38,7 @@ def test_published_widths():
     assert (cfg.embedding_multiplier, cfg.attention_multiplier,
             cfg.residual_multiplier, cfg.logits_scaling, cfg.norm_eps) == \
         (12.0, 0.0078125, 0.22, 16.0, 1e-5)
-    kinds = Model(cfg, device="meta")._mixer_kinds()
+    kinds = [layer.kind for layer in Model(cfg, device="meta").layer_plan()]
     assert kinds.count("attn") == 4 and kinds.count("mamba") == 36
 
 
@@ -275,7 +275,7 @@ def test_spans_of_a_decode_step_and_a_prefill():
     counts = collections.Counter(
         e.name() for e in prof.profiler.kineto_results.events()
         if e.is_user_annotation() and e.name().startswith("rt."))
-    kinds = model._mixer_kinds()
+    kinds = [layer.kind for layer in model.layer_plan()]
     assert counts["rt.mamba"] == 2 * kinds.count("mamba")
     assert counts["rt.attn"] == 2 * kinds.count("attn")
     assert counts["rt.moe"] == counts["rt.shared"] == 2 * cfg.n_layers

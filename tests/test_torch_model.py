@@ -1,7 +1,12 @@
 """The port's models against the JAX models on bridged weights: every
 arch of the registry at its reduced size, the audio and vision families
 with their frames / patches, the vision model with non-zero gates."""
+import collections
 import dataclasses
+import functools
+import itertools
+import operator
+import weakref
 
 import numpy as np
 import pytest
@@ -13,8 +18,10 @@ import jax.numpy as jnp
 from repro.configs import registry as ref_registry
 from repro.models.model import Model as RefModel
 from repro_torch import bridge
-from repro_torch.configs import ARCH_IDS, reduced_config
+from repro_torch.configs import ARCH_IDS, PORT_ARCH_IDS, reduced_config
+from repro_torch.models import transformer as tf
 from repro_torch.models.model import Model
+from repro_torch.tree import tree_leaves
 
 #: model forward tolerance (tests/test_kernels.py::test_model_attention_...)
 FWD_TOL = dict(atol=2e-4, rtol=2e-3)
@@ -188,3 +195,65 @@ def test_unported_family_and_int8_cache_raise():
                               "vlm", "hybrid_moe")
     with pytest.raises(ValueError, match="unknown family"):
         Model(dataclasses.replace(cfg, family="rnn"), device="cpu")
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS + PORT_ARCH_IDS)
+def test_layer_plan_fills_the_parameter_and_cache_stacks(arch):
+    """The layer plan walks the config's layers (and whisper's encoder
+    layers; zamba2's shared block, rowless, at its applications), and the
+    rows it names in each parameter and cache stack are that stack's
+    leading dims, every one of them; what it names nothing of is the
+    embedding, the norms and the lengths."""
+    cfg = reduced_config(arch)
+    model = Model(cfg, device="meta")
+    plan = model.layer_plan()
+    kinds = collections.Counter(layer.kind for layer in plan)
+    assert kinds["encoder"] == cfg.n_encoder_layers
+    assert sum(len(layer.params) > 1 for layer in plan
+               if layer.kind != "encoder") == cfg.n_layers
+    cache, _ = model.make_cache(2, 8)
+    for tree, paths in ((model.init(), [layer.params for layer in plan]),
+                        (cache, [layer.cache for layer in plan
+                                 if layer.cache is not None])):
+        stacks = collections.defaultdict(set)
+        for path in paths:
+            keys = tuple(k for k in path if isinstance(k, str))
+            stacks[keys].add(path[len(keys):])
+        for keys, rows in stacks.items():
+            node = functools.reduce(operator.getitem, keys, tree)
+            depth = len(next(iter(rows)))
+            lead = ({(len(node),)} if isinstance(node, list) else
+                    {tuple(t.shape[:depth]) for t in tree_leaves(node)})
+            assert len(lead) == 1, (keys, lead)
+            assert rows == set(itertools.product(*map(range, lead.pop()))), \
+                keys
+        assert set(tree) - {path[0] for path in paths} <= {
+            "embed", "final_norm", "enc_norm", "length"}
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "granite-moe-3b-a800m",
+                                  "granite-4.0-h-small"])
+def test_prefill_frees_the_embedding_after_the_first_layer(arch,
+                                                           monkeypatch):
+    """No frame holds the prompt's embedding past the block that takes it
+    in: every decoder block of a prefill finds it freed unless it is that
+    block's own input (a prompt's embedding is up to 28 MiB on the card)."""
+    model = Model(reduced_config(arch), device="cpu")
+    params = model.init(seed=0)
+    embedded, seen = [], []
+    embed, block = model._embed_tokens, tf.prefill_decoder_block
+
+    def keep(*a):
+        x = embed(*a)
+        embedded.append(weakref.ref(x))
+        return x
+
+    def look(lp, x, *a, **k):
+        seen.append(embedded[0]() is None or embedded[0]() is x)
+        return block(lp, x, *a, **k)
+
+    monkeypatch.setattr(model, "_embed_tokens", keep)
+    monkeypatch.setattr(tf, "prefill_decoder_block", look)
+    tokens = torch.from_numpy(_tokens(model.cfg, 1, 16))
+    model.prefill(params, {"tokens": tokens}, max_len=20)
+    assert seen and all(seen), seen

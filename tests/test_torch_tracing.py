@@ -57,23 +57,16 @@ def _traced(fn):
 
 
 def _block_spans(model):
-    """The block spans one decode step of ``model`` opens, by name."""
-    cfg = model.cfg
-    if cfg.family == "hybrid":
-        n_attn = int(np.sum(model._shared_flags()))
-        return {"rt.mamba": cfg.n_layers, "rt.attn": n_attn,
-                "rt.mlp": n_attn}
-    if cfg.family == "ssm":
-        return dict(collections.Counter(f"rt.{k}"
-                                        for k in model._xlstm_kinds()))
-    if cfg.family == "audio":
-        return {"rt.cross": cfg.n_layers}
-    if cfg.family == "vlm":
-        nseg, nself = model._vlm_seg()
-        return {"rt.cross": nseg, "rt.attn": nseg * nself,
-                "rt.mlp": nseg * nself}
-    ffn = "rt.moe" if cfg.moe is not None else "rt.mlp"
-    return {"rt.attn": cfg.n_layers, ffn: cfg.n_layers}
+    """The block spans one decode step of ``model`` opens, by name: a
+    decoder block's attention and its MLP or experts, every other block
+    of the model's layer plan its own span."""
+    ffn = "rt.moe" if model.cfg.moe is not None else "rt.mlp"
+    spans = {"attn": ("rt.attn", ffn), "mamba": ("rt.mamba",),
+             "mlstm": ("rt.mlstm",), "slstm": ("rt.slstm",),
+             "cross": ("rt.cross",), "gated_cross": ("rt.cross",),
+             "encoder": ()}
+    return dict(collections.Counter(name for layer in model.layer_plan()
+                                    for name in spans[layer.kind]))
 
 
 @pytest.mark.parametrize("name", FAMILIES)

@@ -338,8 +338,7 @@ def test_remat_levels_give_equal_grads_and_recompute(reference, arch):
                    for a, b in zip(grads[remat], grads["none"])), remat
     # one softmax per attention application: each layer's (dense), each
     # application of the shared block (hybrid)
-    n_attn = (int(model._shared_flags().sum()) if model.cfg.ssm
-              else model.cfg.n_layers)
+    n_attn = sum(layer.kind == "attn" for layer in model.layer_plan())
     softmax = lambda r: counts[r].get(aten._softmax.default, 0)
     mm = lambda r: counts[r].get(aten.mm.default, 0)
     assert softmax("none") == 0
