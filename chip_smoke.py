@@ -43,7 +43,11 @@ Phases, in order; any failure exits non-zero:
      on every step but the first, its decode attention launched by the
      warm-up step and the capture alone (and by every step of the eager
      engine), and its tokens must equal those of the
-     same requests served with the eager step. Each of these models also
+     same requests served with the eager step and today's admission. The
+     decoder families' engines admit through the padded prefill: one
+     graph per bucket, each replay equal bit for bit to the same padded
+     prefill run eagerly and within PADDED_REL_TOL of today's prefill,
+     and the wall ms of an admission on each path. Each of these models also
      gives its parameter count, its peak memory, its decode state per
      slot and a repeated 512-token prefill (448 for whisper), equal bit
      for bit;
@@ -231,6 +235,7 @@ from repro_torch.models.attention import sdpa
 from repro_torch.models import moe
 from repro_torch.models.mamba2 import chunk_recurrence
 from repro_torch.models.model import Model
+from repro_torch.models.moe import RealTokens
 from repro_torch.models.transformer import tree_leaves, tree_map
 from repro_torch.serverless import (WORKLOADS, SimulatedPlatform,
                                     StochasticBackend, TorchMeasuredOracle,
@@ -239,6 +244,7 @@ from repro_torch.serverless.generator import (DriftEvent, DriftSchedule,
                                               input_mix_schedule,
                                               load_shift_schedule)
 from repro_torch.serving import RequestQueue, ServeEngine
+from repro_torch.serving.engine import PAD_MULTIPLE, _insert_slot
 from repro_torch.training import (AdamWConfig, SyntheticDataset, adamw_init,
                                   make_train_step, restore_checkpoint,
                                   save_checkpoint, train_state_axes)
@@ -262,6 +268,22 @@ DECODE_ATTN_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-4),
            torch.bfloat16: dict(atol=1e-4, rtol=4e-3)}
 #: the chunk cumsum against torch.cumsum (tests/test_torch_cuda.py)
 CUM_TOL = dict(atol=1e-5, rtol=0)
+#: the padded admission against today's eager prefill in bf16: the
+#: largest error of the last token's logits over the largest logit, and
+#: of the prompt's keys and values over their largest. The same
+#: arithmetic at the bucket's GEMM shapes rounds apart in bf16 (up to
+#: 1.9 % at short prompts in qwen3-0.6b), and where that moves a token
+#: across an expert's capacity cut the token's later keys and values
+#: move by that expert's share (up to 6.3 % in qwen2-moe-a2.7b), while
+#: the logits of the last token stay within 2.2 %
+PADDED_REL_TOL = dict(logits=0.05, k=0.15, v=0.15)
+#: admissions timed per path and bucket by padded_admission
+PADDED_TIMED = 3
+#: where a request served through the padded admission parts from the
+#: tokens today's admission serves it, the largest gap between the two
+#: tokens' logits over the largest logit: a near tie, which the bf16
+#: rounding PADDED_REL_TOL bounds may turn
+PADDED_TIE = 0.02
 #: calls each torch.profiler window of phase 5 covers
 PROFILE_CALLS = 5
 #: each kernel's earlier device time (ms) at its main-path shape, on an
@@ -951,8 +973,9 @@ def graph_against_eager(name, model, params, engine, results, prompts,
     eager warm-up step and the capture alone (the launch count set to 0
     before it ran), and served the tokens that the same ``prompts`` (32
     new tokens each) get from an engine whose decode step runs eagerly
-    (the engine's private seam), which launches it on every step.
-    Returns the eager engine's wall ms per decode step."""
+    (the engine's private seam; a padded admission runs eagerly there
+    too), which launches it on every step. Returns the eager engine's
+    wall ms per decode step."""
     check(engine.decode_graph_captures == 1 and engine.decode_graph_replays
           == engine.decode_steps - 1,
           f"{name}: one decode graph, replayed on {engine.decode_steps - 1} "
@@ -1030,6 +1053,163 @@ def int8_against_bf16(model, params):
         qcache), bf16_cache_bytes=state_bytes(cache), ratio=ratio)
 
 
+def _width(s: int, max_len: int) -> int:
+    return min(-(-s // PAD_MULTIPLE) * PAD_MULTIPLE, max_len)
+
+
+def _timed_ms(fn, n: int = PADDED_TIMED) -> float:
+    """The median wall ms of ``n`` calls of ``fn``, each synchronized."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def padded_admission(name, model, params, engine, results, prompts
+                     ) -> dict:
+    """``engine`` served ``prompts`` through the padded admission (its
+    ``results``): one prefill graph per bucket (its first admission eager,
+    then captured), every later admission a replay, and the counters'
+    prompt and pad tokens. Then each prompt, admitted again into slot 0
+    of the idle engine (a replay): its last logits, the slot's keys and
+    values at [0, width) and its length equal bit for bit those of the
+    same padded prefill run eagerly (``Model.prefill_into`` on the
+    engine's inputs), and within PADDED_REL_TOL of today's
+    ``Model.prefill`` (logits, keys and values at [0, s)); for the first
+    prompt of each bucket the wall ms of an admission through today's
+    prefill and slot copy, the eager padded prefill and the replay, each
+    with its logits read back; and the served tokens against today's
+    (:func:`padded_against_today`). Returns the numbers per bucket and
+    the served tokens' comparison."""
+    lengths = [len(p) for p in prompts]
+    widths = [_width(s, engine.max_len) for s in lengths]
+    buckets = sorted(set(widths))
+    check(engine.prefill_graph_captures == len(buckets)
+          and engine.prefill_graph_replays == len(prompts) - len(buckets),
+          f"{name}: {len(buckets)} prefill graphs, one per bucket, and "
+          f"{len(prompts) - len(buckets)} replays, got "
+          f"{engine.prefill_graph_captures} and "
+          f"{engine.prefill_graph_replays}")
+    check(engine.prefill_real_tokens == sum(lengths) and
+          engine.prefill_pad_tokens == sum(widths) - sum(lengths),
+          f"{name}: the padded admission counted {sum(lengths)} prompt and "
+          f"{sum(widths) - sum(lengths)} pad tokens")
+    cache, ins, out, errs = engine.cache, engine._inputs, {}, {}
+    lengths_before = cache["length"].clone()
+    for i, prompt in enumerate(prompts):
+        s, width = len(prompt), widths[i]
+
+        def rows(upto):
+            return [cache["layers"][k][:, 0, :upto].clone() for k in "kv"]
+
+        got = engine._admit_padded(prompt, 0).clone()
+        got_rows, got_len = rows(width), int(cache["length"][0])
+        want = model.prefill_into(
+            params, ins[3:3 + width][None], RealTokens(ins[0:1], ins[1:2]),
+            ins[2:3], cache)[0, 0]
+        check(torch.equal(got, want) and got_len == s == int(
+            cache["length"][0]) and all(torch.equal(a, b) for a, b in zip(
+                got_rows, rows(width))),
+              f"{name}: the {width}-position prefill graph's replay equals "
+              f"the eager padded prefill bit for bit (logits, keys and "
+              f"values, length {s})")
+        tokens = torch.as_tensor(prompt, device="cuda")[None]
+        today, today_cache = model.prefill(params, {"tokens": tokens},
+                                           max_len=engine.max_len)
+        rel = lambda a, b: float((a.float() - b.float()).abs().max()
+                                 / b.float().abs().max())
+        err = {"logits": rel(got[:model.cfg.vocab],
+                             today[0, -1, :model.cfg.vocab])}
+        for k, r in zip("kv", got_rows):
+            err[k] = rel(r[:, :s], today_cache["layers"][k][:, 0, :s])
+        print(f"  {name} padded admission of {s} tokens (bucket {width}) "
+              f"against today's prefill: logits {err['logits']:.2e}, keys "
+              f"{err['k']:.2e}, values {err['v']:.2e} of the largest")
+        errs[s] = err
+        del today_cache
+        if i != widths.index(width):
+            continue
+
+        def todays_admission():
+            lg, sc = model.prefill(params, {"tokens": tokens},
+                                   max_len=engine.max_len)
+            _insert_slot(cache, sc, 0, engine.cache_axes)
+            lg[0, -1].cpu()
+
+        def eager_padded():
+            model.prefill_into(params, ins[3:3 + width][None],
+                               RealTokens(ins[0:1], ins[1:2]), ins[2:3],
+                               cache)[0, 0].cpu()
+
+        out[width] = dict(
+            prompt=s,
+            todays_ms=_timed_ms(todays_admission),
+            eager_padded_ms=_timed_ms(eager_padded),
+            replay_ms=_timed_ms(lambda: engine._admit_padded(prompt,
+                                                             0).cpu()))
+        print(f"  {name} admission of {s} tokens (bucket {width}): today's "
+              f"{out[width]['todays_ms']:.3f} ms, eager padded "
+              f"{out[width]['eager_padded_ms']:.3f} ms, graph replay "
+              f"{out[width]['replay_ms']:.3f} ms; the replay equal to the "
+              f"eager padded prefill bit for bit")
+    check(engine.prefill_graph_captures == len(buckets),
+          f"{name}: no bucket captured twice")
+    cache["length"].copy_(lengths_before)
+    out["rel_err"] = errs
+    out["served"] = padded_against_today(name, model, params, engine,
+                                         results, prompts)
+    check(all(e[k] < PADDED_REL_TOL[k] for e in errs.values() for k in e),
+          f"{name}: every prompt's padded prefill against today's within "
+          f"{PADDED_REL_TOL} of the largest value, got {errs}")
+    return out
+
+
+def padded_against_today(name, model, params, engine, results, prompts
+                         ) -> dict:
+    """The tokens ``engine`` served ``prompts`` (32 new tokens each)
+    through the padded admission against those an engine admitting
+    through today's prefill serves them (the decode graph in both): a
+    request may part from today's tokens only at a near tie, where
+    today's prefill of its prompt and the tokens both served before the
+    parting puts the two tokens' logits within PADDED_TIE of its largest
+    logit (bf16 rounds the bucket's GEMM shapes apart from the prompt's).
+    Returns the requests served alike and, for those parted, the token
+    index and the gap."""
+    today = ServeEngine(model, params, n_slots=engine.n_slots,
+                        max_len=engine.max_len)
+    today._pads = False
+    queue = RequestQueue()
+    for prompt in prompts:
+        queue.submit(prompt, max_new_tokens=32)
+    want = {r.uid: r.tokens for r in today.run(queue)}
+    del today
+    gaps = {}
+    for i, r in enumerate(sorted(results, key=lambda r: r.uid)):
+        k = next((j for j, (a, b) in enumerate(zip(r.tokens, want[r.uid]))
+                  if a != b), None)
+        if k is None:
+            continue
+        seq = np.concatenate([prompts[i], np.asarray(r.tokens[:k],
+                                                     dtype=np.int64)])
+        row = model.prefill(params, {"tokens": torch.as_tensor(
+            seq, device="cuda")[None]}, max_len=engine.max_len)[0][0, -1]
+        row = row[:model.cfg.vocab].float()
+        gaps[r.uid] = (k, float((row[want[r.uid][k]] - row[r.tokens[k]])
+                                / row.abs().max()))
+    print(f"  {name}: {len(results) - len(gaps)} of {len(results)} requests "
+          f"served today's tokens through the padded admission; parted "
+          f"(token index, today's gap over its largest logit): {gaps}")
+    check(all(g <= PADDED_TIE for _, g in gaps.values()),
+          f"{name}: the padded admission parts from today's tokens only at "
+          f"near ties (gap <= {PADDED_TIE} of the largest logit), got {gaps}")
+    torch.cuda.empty_cache()
+    return dict(alike=len(results) - len(gaps), parted=gaps)
+
+
 def print_serving(name, engine, results, lengths, wall, launches):
     n_tokens = sum(len(r.tokens) for r in results)
     busy = engine.prefill_s + engine.decode_s
@@ -1041,6 +1221,12 @@ def print_serving(name, engine, results, lengths, wall, launches):
           f"{engine.decode_graph_captures} decode graph, "
           f"{engine.decode_graph_replays} replays), "
           f"{n_tokens / busy:.1f} tokens/s; launches {launches}")
+    if engine._pads:
+        print(f"  padded admission: {engine.prefill_graph_captures} prefill "
+              f"graphs, {engine.prefill_graph_replays} replays (the checks' "
+              f"included), "
+              f"{engine.prefill_pad_tokens} pad positions for "
+              f"{engine.prefill_real_tokens} prompt tokens")
 
 
 def profile_call(name, fn, kernels, n: int = PROFILE_CALLS):
@@ -1090,9 +1276,11 @@ def profile_call(name, fn, kernels, n: int = PROFILE_CALLS):
 
 def where_time_goes(model, params, engine, kernels, extra=None):
     """``profile_call`` for one eager decode step of the 4-slot batch, one
-    replay of the engine's decode graph and one prefill of 512 tokens
-    (PROFILE_PROMPT's length where it names the model), warm, as the
-    main path runs them; over 2 calls for xLSTM, whose sLSTM prefill
+    replay of the engine's decode graph, one prefill of 512 tokens
+    (PROFILE_PROMPT's length where it names the model) and, where the
+    engine pads its admissions, one replay of its 512-position prefill
+    graph, warm, as the main path runs them; over 2 calls for xLSTM,
+    whose sLSTM prefill
     launches tens of thousands of kernels. Returns
     {call: (its kernel rows, longest first, kernel launches per call,
     wall ms, device-busy ms)}."""
@@ -1106,6 +1294,9 @@ def where_time_goes(model, params, engine, kernels, extra=None):
         f"prefill, {s} tokens": lambda: model.prefill(
             params, {"tokens": prompt, **(extra or {})},
             max_len=engine.max_len)}
+    if 512 in engine._prefill_graphs:
+        calls["prefill graph replay, 512 positions"] = \
+            engine._prefill_graphs[512][0].replay
     n = 2 if cfg.family == "ssm" else PROFILE_CALLS
     return {name: profile_call(name, fn, kernels, n=n)
             for name, fn in calls.items()}
@@ -1275,13 +1466,22 @@ def serve_model(arch):
                           if k != "length"}):
         check(bool(torch.isfinite(t).all()), f"{arch}: finite decode cache")
     per = flash_per_prefill(model)
-    check(launches == per * engine.n_prefills,
-          f"{arch}: flash launches {launches} == {per} x "
-          f"{engine.n_prefills} prefills")
+    # a replayed admission launches nothing from Python; a bucket's first
+    # admission runs the prefill and then captures it
+    enqueued = engine.n_prefills - engine.prefill_graph_replays \
+        + engine.prefill_graph_captures
+    check(launches == per * enqueued,
+          f"{arch}: flash launches {launches} == {per} x {enqueued} "
+          f"prefills enqueued from Python")
     serve_peak = torch.cuda.max_memory_allocated() - base
     per_slot = state_bytes(engine.cache) // engine.n_slots
+    graphs = (engine.prefill_graph_captures, engine.prefill_graph_replays)
     eager_ms = graph_against_eager(arch, model, params, engine, results,
                                    prompts, extra)
+    check(engine._pads == (cfg.family in ("dense", "moe")),
+          f"{arch}: the decoder families, and only they, pad admissions")
+    padded = padded_admission(arch, model, params, engine, results,
+                              prompts) if engine._pads else None
     s = PROFILE_PROMPT.get(arch, 512)
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab, size=s),
                              device="cuda")[None]
@@ -1301,7 +1501,9 @@ def serve_model(arch):
                    serve_peak_bytes=serve_peak, state_bytes_per_slot=per_slot,
                    flash_per_prefill=per, repeated_prefill_equal=True,
                    decode_graph_replays=engine.decode_graph_replays,
-                   eager_decode_step_ms=eager_ms)
+                   eager_decode_step_ms=eager_ms,
+                   prefill_graphs_and_replays=graphs,
+                   padded_admission=padded)
     cut = (f" (depth cut from 100: the full model's 87,666,794,536 "
            f"parameters, about 175 GB in bf16, do not fit one 80 GB card)"
            if arch.startswith("llama") else "")

@@ -128,10 +128,16 @@ class Family:
     device), ``axes()``, ``cache(batch, max_len)`` -> (zeros without the
     lengths, axes), ``forward(params, x, batch)`` -> (x, aux loss),
     ``prefill(..., max_len)`` -> (x, cache) and ``decode(params, cache,
-    x, length)`` -> x, writing the cache in place."""
+    x, length)`` -> x, writing the cache in place. A family that sets
+    ``pads_prefill`` also defines ``prefill_into(params, x, cache, slot,
+    real)`` -> x: the prefill of one prompt padded at its end, written
+    straight into row ``slot`` of the batch cache (``Model.prefill_into``).
+    """
 
     #: whether the family's blocks take ``cfg.moe``
     experts = True
+    #: whether the family defines ``prefill_into``
+    pads_prefill = False
 
     def __init__(self, cfg, device: torch.device):
         scaled = (cfg.embedding_multiplier, cfg.attention_multiplier,
@@ -205,6 +211,8 @@ class Family:
 class Decoder(Family):
     """dense and moe: ``n_layers`` decoder blocks, stack ``layers``."""
 
+    pads_prefill = True
+
     def _plan(self):
         return (Layer("attn", ("layers", i), ("layers", i))
                 for i in range(self.cfg.n_layers))
@@ -243,6 +251,12 @@ class Decoder(Family):
                 quantized=self.cfg.kv_cache_quant)
             caches.append(c)
         return x, {"layers": _stack(caches)}
+
+    def prefill_into(self, params, x, cache, slot, real):
+        for _, lp, lc in self.walk(params, cache):
+            x = tf.prefill_decoder_block_into(lp, x, self.bcfg, lc, slot,
+                                              real)
+        return x
 
     def decode(self, params, cache, x, length):
         for _, lp, lc in self.walk(params, cache):

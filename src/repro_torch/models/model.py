@@ -12,6 +12,8 @@ Entry points, as in the reference:
                    is on, each layer is rematerialised as ``cfg.remat``
                    says
   ``prefill``      full-sequence pass that also emits the decode cache
+  ``prefill_into`` (where ``pads_prefill``) one prompt padded to a fixed
+                   length, written straight into a row of a batch cache
   ``decode_step``  one-token step against the cache
 
 Params and caches are nested dicts of tensors in the reference layout:
@@ -39,7 +41,7 @@ from repro_torch.models import xlstm as xl
 from repro_torch.models.families import (  # noqa: F401 re-exported
     ACT_AXES, FAMILIES, REMAT, SCALED_FAMILIES, Layer, Tree, _maybe_remat)
 from repro_torch.models.layers import apply_norm, embed_tokens, unembed
-from repro_torch.models.moe import MoEConfig
+from repro_torch.models.moe import MoEConfig, RealTokens, capacity
 from repro_torch.models.transformer import BlockConfig
 from repro_torch.tracing import span
 from repro_torch.tree import tree_leaves
@@ -275,6 +277,37 @@ class Model:
                 params, self._embed_tokens(params, tokens), batch, max_len)
             return self._head(params, x, last=True), dict(cache,
                                                           length=length)
+
+    @property
+    def pads_prefill(self) -> bool:
+        """Whether :meth:`prefill_into` serves this model: its family
+        declares it and the cache keeps keys and values in the model's
+        type (not int8)."""
+        return self._family.pads_prefill and not self.cfg.kv_cache_quant
+
+    def real_counts(self, n: int) -> Tuple[int, int]:
+        """What :meth:`prefill_into`'s ``real`` holds for a prompt of
+        ``n`` tokens: (n, the MoE capacity at n; 0 without experts)."""
+        moe = self.cfg.moe
+        return n, 0 if moe is None else capacity(n, moe)
+
+    def prefill_into(self, params: Tree, tokens: torch.Tensor,
+                     real: RealTokens, slot: torch.Tensor, cache: Tree
+                     ) -> torch.Tensor:
+        """One prompt padded at its end, tokens (1, B), prefilled into row
+        ``slot`` ((1,) int64 on the device) of the batch cache ``cache``
+        in place: its keys and values at positions [0, B), its length set
+        to ``real.n``. Returns the logits at position ``real.n - 1``, (1,
+        1, vocab). Every shape is fixed by B and every count is on the
+        device, so one CUDA graph per B serves every prompt that pads to
+        it. Only where :attr:`pads_prefill`."""
+        if not self.pads_prefill:
+            raise ValueError(f"{self.cfg.name} has no padded prefill")
+        with span("rt.prefill"):
+            x = self._family.prefill_into(
+                params, self._embed_tokens(params, tokens), cache, slot, real)
+            cache["length"].index_copy_(0, slot, real.n.to(torch.int32))
+            return self._head(params, x.index_select(1, real.n - 1))
 
     def decode_step(self, params: Tree, cache: Tree, tokens: torch.Tensor
                     ) -> Tuple[torch.Tensor, Tree]:

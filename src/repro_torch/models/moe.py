@@ -27,6 +27,15 @@ repeat itself bit for bit on the card:
     (``aten.bmm``), which it recomputes, as the reference's
     ``checkpoint_dots_with_no_batch_dims`` does.
 
+A sequence padded at its end to a fixed length (a batch-1 prefill run at
+a bucket's length, so that one captured graph serves every prompt that
+pads to it) passes its real tokens (:class:`RealTokens`): the pads'
+routing is zeroed, each expert's top-k runs at the padded length's
+capacity, and its rows past the capacity of the real count are dropped
+(gate 0, named by no token). The top-k is stable and the pads, routed
+0, sit above every real token, so the rows kept are the (token, expert)
+pairs that the call on the real tokens alone takes.
+
 While tracing is on (:mod:`repro_torch.tracing`) the dispatch counts, per
 phase ("decode" for one token a sequence, "prefill" otherwise), the
 capacity rows it runs, the (token, expert) pairs the router chose and the
@@ -38,7 +47,7 @@ wait to the step.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -140,10 +149,46 @@ def _routing(params: Params, xf: torch.Tensor, cfg: MoEConfig):
     return routing, probs, top_idx
 
 
+#: the least capacity of each dispatch
+FLOOR = {"global": 8, "grouped": 4}
+
+
 def _capacity(n_tokens: int, cfg: MoEConfig, floor: int) -> int:
     cap = max(int(n_tokens * cfg.top_k * cfg.capacity_factor
                   / cfg.n_experts), floor)
     return min(cap, n_tokens)
+
+
+def capacity(n_tokens: int, cfg: MoEConfig) -> int:
+    """The rows each expert takes from ``n_tokens`` tokens (those of the
+    call under global dispatch, of one sequence under grouped)."""
+    return _capacity(n_tokens, cfg, FLOOR[cfg.dispatch])
+
+
+class RealTokens(NamedTuple):
+    """The real tokens of one sequence padded at its end: their count
+    ``n`` and ``cap``, the :func:`capacity` at that count. Each is a (1,)
+    int64 tensor on the device, so that a graph captured once serves
+    every count."""
+
+    n: torch.Tensor
+    cap: torch.Tensor
+
+
+def _expert_choice(routing: torch.Tensor, cap: int,
+                   real: Optional[RealTokens]):
+    """Each expert's top-``cap`` tokens of routing (..., t, e): (gate_ec,
+    tok_ec (..., e, cap), the live rows (cap,) or None if all are). With
+    ``real`` the routing of the pads (positions >= real.n) is zeroed
+    first, and the rows at index >= real.cap are not live: their gate is
+    0 and no token names them (:func:`_token_rows`)."""
+    if real is None:
+        return (*_top_k(routing.transpose(-1, -2), cap), None)
+    pad = torch.arange(routing.shape[-2], device=routing.device) >= real.n
+    routing = routing.masked_fill(pad[:, None], 0.0)
+    gate_ec, tok_ec = _top_k(routing.transpose(-1, -2), cap)
+    live = torch.arange(cap, device=routing.device) < real.cap
+    return gate_ec.masked_fill(~live, 0.0), tok_ec, live
 
 
 def _experts(params: Params, x_ec: torch.Tensor) -> torch.Tensor:
@@ -153,18 +198,21 @@ def _experts(params: Params, x_ec: torch.Tensor) -> torch.Tensor:
     return torch.einsum("...ecf,efd->...ecd", h, params["down"])
 
 
-def _token_rows(tok: torch.Tensor, top_idx: torch.Tensor, n_tokens: int
-                ) -> torch.Tensor:
+def _token_rows(tok: torch.Tensor, top_idx: torch.Tensor, n_tokens: int,
+                live: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The rows of the dispatched block, numbered as ``tok.reshape(-1)``
     (tok: (..., e, c), the token of each row), that hold each token's
-    top-k choices: (n_tokens, k), -1 where the expert dropped the token.
-    An expert takes a token at most once, so each (token, expert) pair
-    names at most one row."""
+    top-k choices: (n_tokens, k), -1 where the expert dropped the token
+    (or took it in a row that ``live`` (c,) marks dead). An expert takes a
+    token at most once, so each (token, expert) pair names at most one
+    row."""
     expert = torch.arange(tok.shape[-2], device=tok.device)[:, None]
     rows = torch.full((n_tokens, tok.shape[-2]), -1, dtype=torch.long,
                       device=tok.device)
-    rows[tok.reshape(-1), expert.expand(tok.shape).reshape(-1)] = \
-        torch.arange(tok.numel(), device=tok.device)
+    row = torch.arange(tok.numel(), device=tok.device)
+    if live is not None:
+        row = torch.where(live.expand(tok.shape).reshape(-1), row, -1)
+    rows[tok.reshape(-1), expert.expand(tok.shape).reshape(-1)] = row
     return rows.gather(1, top_idx)
 
 
@@ -241,12 +289,14 @@ def reset_moe_stats() -> None:
 
 def _dispatch(params: Params, xf: torch.Tensor, top_idx: torch.Tensor,
               gate_ec: torch.Tensor, tok_ec: torch.Tensor,
-              phase: Optional[str] = None) -> torch.Tensor:
+              phase: Optional[str] = None,
+              live: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Gather each expert's tokens (tok_ec (..., e, c), ids into xf's
-    rows), run the experts, weight by the gate and sum back to tokens.
-    With a ``phase``, the dispatch is counted under it."""
+    rows), run the experts, weight by the gate and sum back to tokens;
+    the rows ``live`` marks dead reach no token. With a ``phase``, the
+    dispatch is counted under it."""
     tok = tok_ec.reshape(-1)
-    src = _token_rows(tok_ec, top_idx, xf.shape[0])
+    src = _token_rows(tok_ec, top_idx, xf.shape[0], live)
     if phase is not None:
         _count(phase, tok_ec, top_idx, src)
     x_ec = _Gather.apply(xf, tok, src).reshape(*tok_ec.shape, -1)
@@ -256,42 +306,54 @@ def _dispatch(params: Params, xf: torch.Tensor, top_idx: torch.Tensor,
 
 
 def _dispatch_global(params: Params, xf: torch.Tensor, cfg: MoEConfig,
-                     phase: Optional[str] = None):
+                     phase: Optional[str] = None,
+                     real: Optional[RealTokens] = None):
     """Expert-major top-k over the whole token set. Returns (out, probs,
     top_idx, tok_ec), tok_ec (e, c) the tokens each expert took."""
     routing, probs, top_idx = _routing(params, xf, cfg)
-    gate_ec, tok_ec = _top_k(routing.T, _capacity(xf.shape[0], cfg, 8))
-    return _dispatch(params, xf, top_idx, gate_ec, tok_ec, phase), probs, \
-        top_idx, tok_ec
+    gate_ec, tok_ec, live = _expert_choice(routing,
+                                           capacity(xf.shape[0], cfg), real)
+    return _dispatch(params, xf, top_idx, gate_ec, tok_ec, phase, live), \
+        probs, top_idx, tok_ec
 
 
 def _dispatch_grouped(params: Params, x: torch.Tensor, cfg: MoEConfig,
-                      phase: Optional[str] = None):
+                      phase: Optional[str] = None,
+                      real: Optional[RealTokens] = None):
     """Per-sequence capacity: routing and the capacity top-k are batched
     over the batch dim. Returns (out (b*s, d), probs, top_idx, tok_ec
     (b, e, c)). The gather takes the flattened (b*e*c) index set and never
     materialises more than (b, e*c, d)."""
     b, s, d = x.shape
     routing, probs, top_idx = _routing(params, x, cfg)            # (b,s,e)
-    gate_ec, tok_ec = _top_k(routing.transpose(1, 2), _capacity(s, cfg, 4))
+    gate_ec, tok_ec, live = _expert_choice(routing, capacity(s, cfg), real)
     offset = torch.arange(0, b * s, s, device=x.device)[:, None, None]
     top_idx = top_idx.reshape(b * s, -1)
     out = _dispatch(params, x.reshape(b * s, d), top_idx, gate_ec,
-                    tok_ec + offset, phase)
+                    tok_ec + offset, phase, live)
     return out, probs.reshape(b * s, -1), top_idx, tok_ec
 
 
-def apply_moe(params: Params, x: torch.Tensor, cfg: MoEConfig
+def apply_moe(params: Params, x: torch.Tensor, cfg: MoEConfig,
+              real: Optional[RealTokens] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (batch, seq, d) -> (output, aux_loss)."""
+    """x: (batch, seq, d) -> (output, aux_loss). With ``real``, x is one
+    sequence padded at its end, and the experts take from its real tokens
+    what the call on them alone takes; the pads' output is the shared
+    expert's alone, and the aux loss counts the pads too."""
     b, s, d = x.shape
+    if real is not None and b != 1:
+        raise ValueError(f"real tokens describe one sequence, got a batch "
+                         f"of {b}")
     xf = x.reshape(b * s, d)
     phase = ("decode" if s == 1 else "prefill") if tracing.enabled() \
         else None
     if cfg.dispatch == "grouped":
-        out, probs, top_idx, _ = _dispatch_grouped(params, x, cfg, phase)
+        out, probs, top_idx, _ = _dispatch_grouped(params, x, cfg, phase,
+                                                   real)
     elif cfg.dispatch == "global":
-        out, probs, top_idx, _ = _dispatch_global(params, xf, cfg, phase)
+        out, probs, top_idx, _ = _dispatch_global(params, xf, cfg, phase,
+                                                  real)
     else:
         raise ValueError(f"unknown MoE dispatch {cfg.dispatch!r}")
 

@@ -19,6 +19,7 @@ the block's dtype, or as int8 with one fp16 scale per (position, head).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -34,8 +35,8 @@ from repro_torch.models.attention import (_BSHD, _project_qkv, _sdpa_plain,
                                           make_attention_params, sdpa)
 from repro_torch.models.layers import (apply_mlp, apply_norm, make_mlp_params,
                                        make_norm_params, mlp_axes, norm_axes)
-from repro_torch.models.moe import (MoEConfig, apply_moe, make_moe_params,
-                                    moe_axes)
+from repro_torch.models.moe import (MoEConfig, RealTokens, apply_moe,
+                                    make_moe_params, moe_axes)
 from repro_torch.tracing import span
 from repro_torch.tree import tree_leaves, tree_map  # noqa: F401 re-exported
 
@@ -147,17 +148,21 @@ def decoder_block_axes(cfg: BlockConfig) -> Tree:
     return axes
 
 
-def _ffn(params: Tree, x: torch.Tensor, cfg: BlockConfig
+def _ffn(params: Tree, x: torch.Tensor, cfg: BlockConfig,
+         real: Optional[RealTokens] = None
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Second sublayer, its norm then an MLP or MoE (span ``rt.mlp`` /
     ``rt.moe``). Returns (out, aux_loss), out without the residual. On a
     mesh the MoE runs replicated: its dispatch (the capacity top-k over
     tokens, the row map written in place, the gathers and sums of
-    ``_Gather`` / ``_Combine``) has no DTensor sharding strategy."""
+    ``_Gather`` / ``_Combine``) has no DTensor sharding strategy. ``real``
+    passes a padded sequence's real tokens to the MoE."""
     if cfg.moe is not None:
         with span("rt.moe"):
             h = apply_norm(params["norm2"], x, cfg.norm)
-            return replicated(apply_moe, params["moe"], h, cfg.moe)
+            moe = apply_moe if real is None else \
+                functools.partial(apply_moe, real=real)
+            return replicated(moe, params["moe"], h, cfg.moe)
     with span("rt.mlp"):
         h = apply_norm(params["norm2"], x, cfg.norm)
         return (apply_mlp(params["mlp"], h, cfg.mlp),
@@ -169,7 +174,8 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 
 
 def _attend_and_ffn(params: Tree, x: torch.Tensor, cfg: BlockConfig,
-                    causal: bool, positions: torch.Tensor):
+                    causal: bool, positions: torch.Tensor,
+                    real: Optional[RealTokens] = None):
     """Shared body of the full-sequence block; returns (x, aux, k, v)."""
     b, s, _ = x.shape
     with span("rt.attn"):
@@ -181,7 +187,7 @@ def _attend_and_ffn(params: Tree, x: torch.Tensor, cfg: BlockConfig,
                  scale=cfg.attn_scale)
         x = x + residual(o.reshape(b, s, cfg.n_heads * cfg.head_dim)
                          @ params["attn"]["wo"], cfg)
-    f, aux = _ffn(params, x, cfg)
+    f, aux = _ffn(params, x, cfg, real)
     return x + residual(f, cfg), aux, k, v
 
 
@@ -250,6 +256,26 @@ def prefill_decoder_block(params: Tree, x: torch.Tensor, cfg: BlockConfig,
     x, aux, k, v = _attend_and_ffn(params, x, cfg, True,
                                    _positions(b, s, x.device))
     return x, aux, _prefill_cache(k, v, max_len, quantized)
+
+
+def prefill_decoder_block_into(params: Tree, x: torch.Tensor,
+                               cfg: BlockConfig, cache: Dict,
+                               slot: torch.Tensor, real: RealTokens
+                               ) -> torch.Tensor:
+    """The causal pass of one prompt padded at its end (x: (1, B, d)),
+    its keys and values written in place into rows [0, B) of row
+    ``slot`` ((1,) int64 on the device) of the batch cache ``cache``.
+    Causal attention keeps every real position from seeing a pad, and
+    the MoE takes only the real tokens (``real``), so each real
+    position's output and K/V are those of the prompt alone. The pads'
+    rows of the cache lie past the slot's length, where no decode step
+    reads. Returns x; the aux loss is dropped."""
+    b, s, _ = x.shape
+    x, _, k, v = _attend_and_ffn(params, x, cfg, True,
+                                 _positions(b, s, x.device), real)
+    for name, t in (("k", k), ("v", v)):
+        cache[name].narrow(1, 0, s).index_copy_(0, slot, t)
+    return x
 
 
 #: per_shard roles of a cache's K/V and scales: written independently per

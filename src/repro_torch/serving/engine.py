@@ -5,6 +5,20 @@ alone and copies its batch-1 cache into the slot's row of the batch
 cache, in place, so admission never disturbs the other slots. The
 engine runs where its model runs.
 
+Where the model declares a padded prefill (``Model.pads_prefill``: the
+decoder families, with keys and values in the model's type), the engine
+is on a CUDA device, no weight is a DTensor and the run passes no extra
+inputs, an admission pads its prompt to the next multiple of
+``PAD_MULTIPLE`` positions (at most ``max_len``: the prompt's bucket)
+and prefills it straight into the slot's rows (``Model.prefill_into``),
+its length, real count and slot read from device buffers the engine
+writes. The first admission in a bucket runs that eagerly (the warm-up,
+serving its request) and then captures it into a CUDA graph, which
+every later admission in the bucket replays: one replay in place of the
+prefill's thousands of launches. The buckets' graphs share one memory
+pool; they never run at once, and each admission reads its logits back
+before the next replays.
+
 The engine keeps one cache and one tensor of last tokens for its whole
 life and writes both in place, so a decode step always reads and writes
 the same storage at the same shapes. On a CUDA device that makes the
@@ -40,10 +54,11 @@ the MoE dispatch's capacity rows against the pairs routed and taken::
 
 Off, the spans cost a boolean test each and the MoE counts nothing.
 While tracing is on the engine runs the decode step eagerly, never the
-graph: the model's ``rt.*`` spans and the MoE counters run on the host
-as the step is enqueued, so a replay would record neither. The traced
-steps are the same work on the same cache, and the graph serves again
-once tracing is off.
+graph, and admits through the unpadded ``Model.prefill``: the model's
+``rt.*`` spans and the MoE counters run on the host as the work is
+enqueued, so a replay would record neither. The traced steps are the
+same work on the same cache, and the graphs serve again once tracing is
+off.
 """
 from __future__ import annotations
 
@@ -53,11 +68,17 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import tracing
 from repro_torch.models.model import Model
+from repro_torch.models.moe import RealTokens
 from repro_torch.tracing import span
 from repro_torch.serving.scheduler import Request, RequestQueue
+from repro_torch.tree import tree_leaves
+
+#: a padded admission's prompt fills a multiple of this many positions
+PAD_MULTIPLE = 256
 
 
 @dataclasses.dataclass
@@ -102,7 +123,15 @@ class ServeEngine:
     is a CUDA graph, enqueueing it is one replay: ``decode_graph_captures``
     counts the captures (one per engine) and ``decode_graph_replays`` the
     steps that ran as a replay (all but the first, while tracing is off).
+    A padded admission adds its prompt's tokens to ``prefill_real_tokens``
+    and the positions padding added to ``prefill_pad_tokens``;
+    ``prefill_graph_captures`` counts the buckets' captures (one per
+    bucket) and ``prefill_graph_replays`` the admissions that ran as a
+    replay.
     """
+
+    #: the device types on which a declared padded prefill is taken
+    _PAD_DEVICES = ("cuda",)
 
     def __init__(self, model: Model, params, *, n_slots: int = 4,
                  max_len: int = 256, temperature: float = 0.0, seed: int = 0):
@@ -126,6 +155,10 @@ class ServeEngine:
         self.queue_wait_s = 0.0
         self.decode_graph_captures = 0
         self.decode_graph_replays = 0
+        self.prefill_graph_captures = 0
+        self.prefill_graph_replays = 0
+        self.prefill_pad_tokens = 0
+        self.prefill_real_tokens = 0
         # on a CUDA device: the engine's own stream, where its decode step
         # is warmed up and captured, and the graph with its output logits
         self._graphable = self.device.type == "cuda"
@@ -134,25 +167,80 @@ class ServeEngine:
         self._warm = False
         self._graph = None
         self._graph_logits = None
+        # the padded admission: its device inputs (the real count, the
+        # MoE capacity at it, the slot, then the padded prompt), and each
+        # bucket's graph with its output logits, all in one memory pool
+        self._pads = (self.device.type in self._PAD_DEVICES
+                      and model.pads_prefill
+                      and not any(isinstance(t, DTensor)
+                                  for t in tree_leaves(params)))
+        self._inputs = torch.zeros(3 + max_len, dtype=torch.long,
+                                   device=self.device) if self._pads else None
+        self._prefill_graphs: Dict[int, tuple] = {}
+        self._prefill_pool = None
 
     def _admit(self, req: Request, slot: int, queue_batch: Dict):
-        """Prefill one prompt and copy its cache into ``slot``."""
+        """Prefill one prompt into ``slot``: padded, straight into the
+        slot's rows, where the engine pads; else its batch-1 cache copied
+        in."""
         t0 = time.perf_counter()
         if req.submitted_at is not None:
             self.queue_wait_s += t0 - req.submitted_at
         with span("rt.admit", str(req.uid)):
-            prompt = torch.as_tensor(req.prompt, dtype=torch.long,
-                                     device=self.device)[None, :]
-            logits, slot_cache = self.model.prefill(
-                self.params, {"tokens": prompt, **queue_batch},
-                max_len=self.max_len)
-            _insert_slot(self.cache, slot_cache, slot, self.cache_axes)
-            tok = self._sample(logits[0, -1].cpu().numpy())
+            if self._pads and not queue_batch and not tracing.enabled():
+                logits = self._admit_padded(req.prompt, slot)
+            else:
+                prompt = torch.as_tensor(req.prompt, dtype=torch.long,
+                                         device=self.device)[None, :]
+                logits, slot_cache = self.model.prefill(
+                    self.params, {"tokens": prompt, **queue_batch},
+                    max_len=self.max_len)
+                _insert_slot(self.cache, slot_cache, slot, self.cache_axes)
+                logits = logits[0, -1]
+            tok = self._sample(logits.cpu().numpy())
         self.prefill_s += time.perf_counter() - t0
         self.n_prefills += 1
         self.slots[slot] = req
         req.generated.append(tok)
         self.last_tokens[slot, 0] = tok
+
+    def _admit_padded(self, prompt, slot: int) -> torch.Tensor:
+        """Prefill ``prompt`` padded to its bucket straight into ``slot``;
+        returns the logits of its last token (vocab,). The bucket's first
+        admission runs eagerly, then (on a CUDA device) captures the same
+        call on the engine's stream; every later one replays it."""
+        s = len(prompt)
+        width = min(-(-s // PAD_MULTIPLE) * PAD_MULTIPLE, self.max_len)
+        self.prefill_real_tokens += s
+        self.prefill_pad_tokens += width - s
+        host = torch.zeros(3 + width, dtype=torch.long)
+        host[:3] = torch.tensor([*self.model.real_counts(s), slot])
+        host[3:3 + s] = torch.as_tensor(prompt)
+        self._inputs[:3 + width].copy_(host)
+        done = self._prefill_graphs.get(width)
+        if done is not None:
+            graph, logits = done
+            graph.replay()
+            self.prefill_graph_replays += 1
+            return logits[0, 0]
+        ins = self._inputs
+
+        def prefill():
+            return self.model.prefill_into(
+                self.params, ins[3:3 + width][None],
+                RealTokens(ins[0:1], ins[1:2]), ins[2:3], self.cache)
+
+        logits = prefill()
+        if self._graphable:
+            if self._prefill_pool is None:
+                self._prefill_pool = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=self._prefill_pool,
+                                  stream=self._stream):
+                out = prefill()
+            self._prefill_graphs[width] = (graph, out)
+            self.prefill_graph_captures += 1
+        return logits[0, 0]
 
     def _step(self) -> torch.Tensor:
         """The eager decode step: enqueue it and advance the cache's

@@ -664,6 +664,11 @@ def test_reduced_new_family_on_the_card_matches_cpu(cuda, arch, impl):
 #: (prompt length, new tokens) of the requests served two slots at a time,
 #: so requests are admitted between replays
 GRAPH_QUEUE = ((9, 5), (16, 12), (4, 3), (12, 7), (7, 9))
+#: every logit row a padded admission's engine samples against today's
+#: admission's, fp32: the same arithmetic at the bucket's GEMM shapes, so
+#: only the order of a product's sums may differ (the CPU's
+#: tests/test_torch_padded_prefill.py states the same bound)
+PADDED_TOL = dict(atol=2e-5, rtol=1e-5)
 #: reduced models, one of each decode path; the attention families'
 #: prefills run the flash kernel, zamba2's and granite-4.0-h's the SSD
 #: kernels too
@@ -683,13 +688,16 @@ def _engine_model(cuda, arch):
 
 
 def _serve(model, params, *, graph: bool, n_slots: int = 2,
-           max_len: int = 64, max_steps: int = 10_000, queue=None):
+           max_len: int = 64, max_steps: int = 10_000, queue=None,
+           pads: bool = True):
     """An engine serving GRAPH_QUEUE, its decode step a CUDA graph or (the
-    private seam) eager. Returns (engine, requests, queue, every logit row
-    the engine sampled from)."""
+    private seam) eager, its admissions today's where not ``pads``.
+    Returns (engine, requests, queue, every logit row the engine sampled
+    from)."""
     from repro_torch.serving import RequestQueue, ServeEngine
     eng = ServeEngine(model, params, n_slots=n_slots, max_len=max_len)
     eng._graphable = graph
+    eng._pads = eng._pads and pads
     rows = []
     sample = eng._sample
     eng._sample = lambda lg: (rows.append(lg.copy()), sample(lg))[1]
@@ -723,6 +731,29 @@ def test_decode_graph_serves_what_the_eager_step_serves(cuda, arch):
     assert eng.decode_graph_captures == 1
     assert eng.decode_graph_replays == eng.decode_steps - 1
     assert ref.decode_graph_captures == ref.decode_graph_replays == 0
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "qwen3-0.6b"])
+def test_prefill_graph_serves_what_todays_admission_serves(cuda, arch):
+    """The decoder families' padded admission, its bucket (max_len, 64)
+    captured at its first admission and replayed at every later one,
+    serves today's admission's tokens, every sampled logit row within
+    PADDED_TOL of today's; and the same engine with its admissions run
+    eagerly samples the replays' rows bit for bit."""
+    model, params = _engine_model(cuda, arch)
+    eng, reqs, _, rows = _serve(model, params, graph=True)
+    _, eager_reqs, _, eager_rows = _serve(model, params, graph=False)
+    _, ref_reqs, _, ref_rows = _serve(model, params, graph=True, pads=False)
+    assert eng._pads and eng.prefill_graph_captures == 1
+    assert eng.prefill_graph_replays == eng.n_prefills - 1 > 0
+    assert eng.prefill_pad_tokens == 64 * eng.n_prefills - sum(
+        n for n, _ in GRAPH_QUEUE)
+    tokens = [r.generated for r in reqs]
+    assert tokens == [r.generated for r in eager_reqs]
+    assert all(np.array_equal(a, b) for a, b in zip(rows, eager_rows))
+    assert tokens == [r.generated for r in ref_reqs]
+    for a, b in zip(rows, ref_rows):
+        np.testing.assert_allclose(a, b, **PADDED_TOL)
 
 
 def test_decode_graph_steps_aside_while_tracing(cuda):

@@ -221,6 +221,138 @@ def test_unknown_dispatch_raises():
 
 
 # --------------------------------------------------------------------------
+# a sequence padded at its end, with its real-token count
+# --------------------------------------------------------------------------
+
+def _plan_of(monkeypatch, params, x, cfg, real=None):
+    """(out, top_idx (T, k), gate_ec (e, c), tok_ec (e, c), src (T, k)) of
+    one batch-1 call of ``apply_moe``: the arguments its dispatch ran
+    with, and the row map they give."""
+    seen = {}
+    inner = moe._dispatch
+
+    def spy(params, xf, top_idx, gate_ec, tok_ec, phase=None, live=None):
+        seen.update(top_idx=top_idx, gate=gate_ec.reshape(gate_ec.shape[-2:]),
+                    tok=tok_ec.reshape(tok_ec.shape[-2:]),
+                    src=moe._token_rows(tok_ec, top_idx, xf.shape[0], live))
+        return inner(params, xf, top_idx, gate_ec, tok_ec, phase, live)
+
+    monkeypatch.setattr(moe, "_dispatch", spy)
+    out, _ = moe.apply_moe(params, x, cfg, real=real)
+    monkeypatch.undo()
+    return out[0], seen["top_idx"], seen["gate"], seen["tok"], seen["src"]
+
+
+def _taken(top_idx, src, cap, s):
+    """{(token, expert): its rank among the expert's rows} of the pairs
+    the real tokens (< s) had taken."""
+    return {(t, int(top_idx[t, j])): int(src[t, j]) % cap
+            for t in range(s) for j in range(top_idx.shape[1])
+            if src[t, j] >= 0}
+
+
+def _real(n, cfg):
+    return moe.RealTokens(torch.tensor([n]),
+                          torch.tensor([moe.capacity(n, cfg)]))
+
+
+@pytest.mark.parametrize("dispatch", ["global", "grouped"])
+@pytest.mark.parametrize("case,s,width", [
+    ("ragged", 21, 32), ("ties", 24, 32), ("floor", 5, 32),
+    ("s_is_width", 32, 32), ("one_short", 31, 32)])
+def test_padded_sequence_takes_the_real_tokens_pairs(monkeypatch, dispatch,
+                                                     case, s, width):
+    """A sequence of ``s`` real tokens padded to ``width`` with its real
+    count: the (token, expert) pairs its real tokens take, with their
+    ranks and gates, and the tokens each expert takes in its first
+    cap(s) rows are the call on the s tokens alone's; the rows past
+    cap(s) carry gate 0 and no token names them, the pads take no
+    expert, and the real tokens' outputs agree at the MoE tolerance
+    (equal bit for bit where s == width). ``ties`` repeats one token in
+    every position, pads included, so every expert's cut falls among
+    equal values and most routing is 0; ``floor`` puts cap(s) on the
+    dispatch's floor."""
+    cfg, _, params, _ = _layer("shared", dispatch=dispatch)
+    if case == "ties":
+        x = np.broadcast_to(_x(1, 1), (1, width, 64)).copy()
+    else:
+        x = _x(1, width, seed=7)
+    xt = torch.from_numpy(x)
+    cap_s = moe.capacity(s, cfg)
+    if case == "floor":
+        assert cap_s == min(moe.FLOOR[dispatch], s) > int(
+            s * cfg.top_k * cfg.capacity_factor / cfg.n_experts)
+    want = _plan_of(monkeypatch, params, xt[:, :s], cfg)
+    got = _plan_of(monkeypatch, params, xt, cfg, _real(s, cfg))
+    out, top_idx, gate, tok, src = got
+    assert tok.shape[-1] == moe.capacity(width, cfg) >= cap_s
+    assert _taken(top_idx, src, tok.shape[-1], s) == _taken(
+        want[1], want[4], cap_s, s)
+    assert torch.equal(tok[:, :cap_s], want[3])
+    assert torch.equal(gate[:, :cap_s], want[2])
+    assert not gate[:, cap_s:].any()
+    assert bool((src[s:] == -1).all()), "a pad reached an expert"
+    if case == "ties":
+        assert len(_taken(top_idx, src, tok.shape[-1], s)) < \
+            s * cfg.top_k, "no pair dropped at the cut among ties"
+    if s == width:
+        assert torch.equal(out, want[0])
+    else:
+        np.testing.assert_allclose(out[:s].numpy(), want[0].numpy(),
+                                   **MOE_TOL)
+
+
+def _apply_moe_as_before(params, x, cfg):
+    """``apply_moe`` (global dispatch, shared expert, no tracing) as it
+    was before the real-token count, from the module's primitives."""
+    b, s, d = x.shape
+    xf = x.reshape(b * s, d)
+    routing, probs, top_idx = moe._routing(params, xf, cfg)
+    gate_ec, tok_ec = moe._top_k(routing.T, moe._capacity(b * s, cfg, 8))
+    tok = tok_ec.reshape(-1)
+    expert = torch.arange(tok_ec.shape[-2])[:, None]
+    rows = torch.full((b * s, tok_ec.shape[-2]), -1, dtype=torch.long)
+    rows[tok, expert.expand(tok_ec.shape).reshape(-1)] = \
+        torch.arange(tok.numel())
+    src = rows.gather(1, top_idx)
+    x_ec = moe._Gather.apply(xf, tok, src).reshape(*tok_ec.shape, -1)
+    y_ec = moe._experts(params, x_ec) * gate_ec[..., None]
+    out = moe._Combine.apply(y_ec.reshape(tok.numel(), -1), tok, src)
+    sh = (torch.nn.functional.silu(xf @ params["shared_gate"])
+          * (xf @ params["shared_up"])) @ params["shared_down"]
+    out = out + torch.sigmoid(xf @ params["shared_router"]) * sh
+    frac_tokens = torch.nn.functional.one_hot(
+        top_idx, cfg.e_total).float().mean(dim=(0, 1))
+    aux = cfg.n_experts * (frac_tokens * probs.mean(dim=0)).sum() \
+        * cfg.aux_coef
+    return out.reshape(b, s, d), aux
+
+
+def test_without_real_tokens_the_moe_is_unchanged_bit_for_bit():
+    """Without the count, ``apply_moe``'s output, aux loss and every
+    gradient equal the dispatch's as it was before the count existed,
+    bit for bit, with tokens dropped at the capacity cut."""
+    cfg, _, params, _ = _layer("shared")
+    x = torch.from_numpy(_x(2, 32))
+    results = []
+    for fn in (moe.apply_moe, _apply_moe_as_before):
+        p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+        xi = x.clone().requires_grad_(True)
+        out, aux = fn(p, xi, cfg)
+        ((out * out).sum() + aux).backward()
+        results.append([out, aux, xi.grad] + [p[k].grad for k in sorted(p)])
+    for got, want in zip(*results):
+        assert torch.equal(got, want)
+
+
+def test_real_tokens_take_one_sequence():
+    cfg, _, params, _ = _layer("shared")
+    with pytest.raises(ValueError, match="one sequence"):
+        moe.apply_moe(params, torch.from_numpy(_x(2, 8)), cfg,
+                      real=_real(4, cfg))
+
+
+# --------------------------------------------------------------------------
 # reduced models
 # --------------------------------------------------------------------------
 
