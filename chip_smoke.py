@@ -10,9 +10,12 @@ Phases, in order; any failure exits non-zero:
      paths' shapes and timed beside its plain version, one PyTorch
      library call (where one computes the same function) and its bound:
      flash attention (bf16 tensor-core and fp32 scalar routes, at the
-     dense, hybrid, MoE, whisper and vision prefill shapes), decode
-     attention at the two benchmark cells' decode shapes (a chat mix of
-     lengths, the rows past them NaN), the fused RMSNorm, the two
+     dense, hybrid, MoE, whisper and vision prefill shapes, and
+     DeepSeek-V2-Lite's q.k 192 / v 128 at 1,024-15,872 positions),
+     decode attention at the two benchmark cells' decode shapes (a chat
+     mix of lengths, the rows past them NaN), the MLA decode at the
+     long-chat cell's 32 x 16,384 latent rows (long-chat lengths, the
+     rows past them NaN), the fused RMSNorm, the two
      SSD-scan passes on both routes (the intra pass, which also takes the
      chunk cumsum, and the inter pass, which also runs the chunk
      recurrence) and the composed SSD scan;
@@ -32,8 +35,11 @@ Phases, in order; any failure exits non-zero:
      block through flash attention), then one full-width zamba2 forward,
      the reference's own kernel route; full-width granite-4.0-h-small
      (family hybrid_moe) at one period of its layers (10) serving 8
-     requests of prompts padded to whole chunks; full-width, full-depth
-     qwen2-moe-a2.7b and then granite-moe-3b-a800m in bf16 serving 8
+     requests of prompts padded to whole chunks; full-width
+     deepseek-v2-lite at MLA_LAYERS layers serving 8 requests (the
+     expanded prefill's flash at 192 / 128 once a layer per prefill, the
+     MLA decode kernel once a layer per eager step, the grouped decode
+     attention never); full-width, full-depth qwen2-moe-a2.7b and then granite-moe-3b-a800m in bf16 serving 8
      requests each, and granite's int8 KV cache; then the last three
      families, 8 requests each: full-size xlstm-350m, full-size
      whisper-tiny (one seeded (1, 1500, 384) frames input) and
@@ -221,6 +227,9 @@ from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.mla_decode import ops as mla_ops
+from repro_torch.kernels.mla_decode.kernel import mla_decode_cuda
+from repro_torch.kernels.mla_decode.ref import mla_decode_ref
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm.kernel import fused_rmsnorm_cuda
 from repro_torch.kernels.rmsnorm.ref import fused_rmsnorm_ref
@@ -275,8 +284,10 @@ CUM_TOL = dict(atol=1e-5, rtol=0)
 #: 1.9 % at short prompts in qwen3-0.6b), and where that moves a token
 #: across an expert's capacity cut the token's later keys and values
 #: move by that expert's share (up to 6.3 % in qwen2-moe-a2.7b), while
-#: the logits of the last token stay within 2.2 %
-PADDED_REL_TOL = dict(logits=0.05, k=0.15, v=0.15)
+#: the logits of the last token stay within 2.2 %. A latent cache's rows
+#: (DeepSeek-V2: the normalised latent and the rope key that its keys and
+#: values are made of) are held as the keys are
+PADDED_REL_TOL = dict(logits=0.05, k=0.15, v=0.15, latent=0.15)
 #: admissions timed per path and bucket by padded_admission
 PADDED_TIMED = 3
 #: where a request served through the padded admission parts from the
@@ -316,6 +327,19 @@ MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = \
 #: on the largest logit error over the largest logit
 #: (tests/test_perf_features.py::test_int8_kv_cache_decode_accuracy)
 INT8_PROMPT, INT8_STEPS, INT8_BOUND = 300, 16, 0.05
+#: DeepSeek-V2-Lite's latent attention (tests/test_torch_cuda.py): the
+#: cache row [c (512), k_pe (64)], the value width, the scores' scale
+#: 192^-1/2 times YaRN's mscale (0.1 x 0.707 ln 40 + 1) squared, and the
+#: MLA decode kernel against the plain version in fp32 on the same bf16
+#: inputs (the kernel rounds each tile's probabilities to bf16 for the
+#: P V product, and its output once)
+MLA_ROW, MLA_V, MLA_SCALE = 576, 512, 0.1147213867929261
+MLA_TOL = dict(atol=2e-3, rtol=1e-2)
+#: deepseek-v2-lite served at full width and this depth: the dense layer
+#: and two expert layers; its prompts straddle the admission buckets up
+#: to the expanded prefill's flash at 1,792 positions
+MLA_LAYERS = 3
+MLA_PROMPTS = (37, 200, 256, 300, 511, 700, 1000, 1700)
 #: the last three families: parameters counted from the reference's
 #: configs (the reference's n_params), the vision model's depth cut (100
 #: layers, 87,666,794,536 parameters, about 175 GB in bf16, do not fit one
@@ -516,23 +540,26 @@ def randn(gen, shape, dtype):
 # phase 2: kernels against their plain versions
 # --------------------------------------------------------------------------
 
-def check_flash(gen, b, s, h, hkv, d, dtype, scale=None):
+def check_flash(gen, b, s, h, hkv, d, dtype, scale=None, dv=None):
     """One flash shape against the plain version, timed; ``scale`` the
-    scores' (None: d^-1/2), the library's timed at the same scale."""
+    scores' (None: d^-1/2), the library's timed at the same scale; ``dv``
+    the values' head dim (None: d)."""
+    dv = d if dv is None else dv
     q = randn(gen, (b, s, h, d), dtype)
     k = randn(gen, (b, s, hkv, d), dtype)
-    v = randn(gen, (b, s, hkv, d), dtype)
+    v = randn(gen, (b, s, hkv, dv), dtype)
     out = flash_attention_cuda(q, k, v, scale=scale)
     torch.cuda.synchronize()
     err = max_err(out, attention_ref(q, k, v, scale=scale), **TOL[dtype],
-                  what=f"flash attention b={b} s={s} h={h}/{hkv} d={d}")
+                  what=f"flash attention b={b} s={s} h={h}/{hkv} d={d}/{dv}")
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     size = q.element_size()
-    ms_bound, bound_by = bound(4 * d * b * h * s * (s + 1) / 2,
-                               size * b * s * d * (2 * h + 2 * hkv), dtype)
+    ms_bound, bound_by = bound(2 * (d + dv) * b * h * s * (s + 1) / 2,
+                               size * b * s * (d + dv) * (h + hkv), dtype)
     at = "" if scale is None else f" scale={scale:g}"
+    width = f"d={d}" if dv == d else f"d={d}/{dv}"
     return dict(
-        shape=f"b={b} s={s} h={h} hkv={hkv} d={d}{at} {str(dtype)[6:]}",
+        shape=f"b={b} s={s} h={h} hkv={hkv} {width}{at} {str(dtype)[6:]}",
         route=("mma.sync bf16" if dtype == torch.bfloat16
                else "scalar fp32"),
         max_abs_err=err,
@@ -597,6 +624,63 @@ def check_decode(gen, b, s, h, hkv, d, dtype, scale=None):
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask[:, None, None, :], enable_gqa=True,
             scale=scale)),
+        bound_ms=ms_bound, bound_by=bound_by)
+
+
+def longchat_lengths(rng, b: int, s: int) -> np.ndarray:
+    """Attended positions - 1 of ``b`` slots of the long-chat mix at cache
+    depth ``s``: a prompt (lognormal, median 8,192, 1,024-15,872) and a
+    point in its output (lognormal, median 256, 32-512); the last slot
+    idle, its length past the cache (the kernel clamps it)."""
+    prompt = np.clip(rng.lognormal(np.log(8192), 0.6, b), 1024, 15872)
+    out = np.clip(rng.lognormal(np.log(256), 0.6, b), 32, 512)
+    n = np.minimum(prompt + rng.uniform(0, 1, b) * out, s - 1).astype(int)
+    n[-1] = s + 5
+    return n
+
+
+def check_mla_decode(gen, b, s, h):
+    """The MLA decode kernel at one shape: the absorbed queries against
+    the layer's view of a stacked two-layer latent cache, long-chat
+    lengths, rows past them poisoned with NaN (the kernel must read none),
+    against the plain version in fp32 on the same inputs (MLA_TOL),
+    repeated bit for bit, timed; the bound is each live row's 1,152
+    bytes, q and the output. The library's time is torch's attention
+    over the whole masked cache, its one key head shared by the h query
+    heads and the values the rows' first MLA_V columns."""
+    rng = np.random.default_rng(b * s + h)
+    q = randn(gen, (b, h, MLA_ROW), torch.bfloat16)
+    cache = randn(gen, (2, b, s, MLA_ROW), torch.bfloat16)[1]
+    lengths = longchat_lengths(rng, b, s)
+    for r, n in enumerate(lengths):
+        cache[r, n + 1:] = float("nan")
+    length = torch.as_tensor(lengths, dtype=torch.int32, device="cuda")
+    call = lambda: mla_decode_cuda(q, cache, length, v_dim=MLA_V,
+                                   scale=MLA_SCALE)
+    out = call()
+    torch.cuda.synchronize()
+    want = mla_decode_ref(q.float(), cache.float(), length, v_dim=MLA_V,
+                          scale=MLA_SCALE)
+    err = max_err(out, want, **MLA_TOL,
+                  what=f"MLA decode b={b} S={s} h={h}")
+    check(torch.equal(out, call()), "MLA decode repeats bit for bit")
+    live = int(np.minimum(lengths, s - 1).sum()) + b
+    ms_bound, bound_by = bound(
+        2 * h * live * (MLA_ROW + MLA_V),
+        2 * (live * MLA_ROW + b * h * (MLA_ROW + MLA_V)), torch.bfloat16)
+    cache.nan_to_num_(0.0)
+    mask = (torch.arange(s, device="cuda")[None, :] <= length[:, None])
+    qt, kt = q[:, :, None], cache[:, None]
+    return dict(
+        shape=f"b={b} S={s} h={h} row {MLA_ROW} value {MLA_V} bfloat16, "
+              f"mean {live / b:.0f} live rows",
+        max_abs_err=err, ms=time_ms(call),
+        plain_ms=time_ms(lambda: mla_decode_ref(q, cache, length,
+                                                v_dim=MLA_V,
+                                                scale=MLA_SCALE)),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, kt[..., :MLA_V], attn_mask=mask[:, None, None, :],
+            enable_gqa=True, scale=MLA_SCALE)),
         bound_ms=ms_bound, bound_by=bound_by)
 
 
@@ -954,6 +1038,66 @@ def serve_hybrid_moe():
     return engine, results, launches, lengths, wall, pad / (real + pad)
 
 
+def serve_mla():
+    """Full-width deepseek-v2-lite (latent attention, family moe) cut to
+    MLA_LAYERS layers serving MLA_PROMPTS (32 new tokens each) in 4
+    slots: every admission through the padded bucket graphs, its
+    expanded prefill through flash at q.k 192 / v 128 (one launch a layer
+    for each prefill enqueued from Python), its decode through the MLA
+    decode kernel (one launch a layer per eager step, the grouped decode
+    attention never), the decode graph against the eager step
+    (:func:`graph_against_eager`) and the padded admission against
+    today's (:func:`padded_admission`). Returns (engine, results, {kernel:
+    launches}, prompt lengths, wall seconds, numbers)."""
+    cfg = get_config("deepseek-v2-lite", n_layers=MLA_LAYERS,
+                     attn_impl="kernel")
+    model = Model(cfg)
+    params = model.init(seed=0)
+    engine = ServeEngine(model, params, n_slots=4, max_len=2048)
+    rng = np.random.default_rng(5)
+    lengths = list(MLA_PROMPTS)
+    prompts = [rng.integers(0, cfg.vocab, size=n) for n in lengths]
+    queue = RequestQueue()
+    for prompt in prompts:
+        queue.submit(prompt, max_new_tokens=32)
+    torch.cuda.synchronize()
+    flash_ops.launches = mla_ops.launches = dec_ops.launches = 0
+    t0 = time.perf_counter()
+    results = engine.run(queue)
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": flash_ops.launches,
+                "mla_decode": mla_ops.launches}
+    name = f"deepseek-v2-lite ({MLA_LAYERS} layers)"
+    check(len(results) == len(prompts) and all(
+        len(r.tokens) == 32 and all(0 <= t < cfg.vocab for t in r.tokens)
+        for r in results), f"{name}: {len(prompts)} requests of 32 tokens "
+                           f"in [0, vocab)")
+    check(list(engine.cache["layers"]) == ["latent"] and bool(
+        torch.isfinite(engine.cache["layers"]["latent"]).all()),
+          f"{name}: one finite latent cache")
+    check(engine._pads, f"{name}: admissions take the padded path")
+    check(dec_ops.launches == 0,
+          f"{name}: the grouped decode attention never launched, got "
+          f"{dec_ops.launches}")
+    per = flash_per_prefill(model)
+    enqueued = engine.n_prefills - engine.prefill_graph_replays \
+        + engine.prefill_graph_captures
+    check(per == MLA_LAYERS and launches["flash_attention"] == per * enqueued,
+          f"{name}: flash launches {launches['flash_attention']} == {per} "
+          f"x {enqueued} prefills enqueued from Python")
+    eager_ms = graph_against_eager(name, model, params, engine, results,
+                                   prompts, ops=mla_ops)
+    padded = padded_admission(name, model, params, engine, results, prompts)
+    numbers = dict(layers=cfg.n_layers, flash_per_prefill=per,
+                   mla_decode_per_step=decode_per_step(model),
+                   decode_graph_replays=engine.decode_graph_replays,
+                   eager_decode_step_ms=eager_ms,
+                   prefill_graphs_and_replays=(engine.prefill_graph_captures,
+                                               engine.prefill_graph_replays),
+                   padded_admission=padded)
+    return engine, results, launches, lengths, wall, numbers
+
+
 def count_blocks(model, *kinds) -> int:
     """The blocks of ``model``'s layer plan of any of ``kinds``."""
     return sum(layer.kind in kinds for layer in model.layer_plan())
@@ -967,25 +1111,27 @@ def decode_per_step(model) -> int:
 
 
 def graph_against_eager(name, model, params, engine, results, prompts,
-                        extra=None) -> float:
+                        extra=None, ops=dec_ops) -> float:
     """``engine`` must have captured its decode step once and replayed it
     on every step but the first, its decode attention launched by the
     eager warm-up step and the capture alone (the launch count set to 0
     before it ran), and served the tokens that the same ``prompts`` (32
     new tokens each) get from an engine whose decode step runs eagerly
     (the engine's private seam; a padded admission runs eagerly there
-    too), which launches it on every step. Returns the eager engine's
-    wall ms per decode step."""
+    too), which launches it on every step. ``ops`` is the decode
+    kernel's module (its ``launches``): the grouped decode attention, or
+    the MLA decode of a latent model. Returns the eager engine's wall ms
+    per decode step."""
     check(engine.decode_graph_captures == 1 and engine.decode_graph_replays
           == engine.decode_steps - 1,
           f"{name}: one decode graph, replayed on {engine.decode_steps - 1} "
           f"steps, got {engine.decode_graph_captures} captures and "
           f"{engine.decode_graph_replays} replays")
     per_step = decode_per_step(model)
-    check(dec_ops.launches == 2 * per_step,
-          f"{name}: decode attention launched {dec_ops.launches} times by "
+    check(ops.launches == 2 * per_step,
+          f"{name}: decode attention launched {ops.launches} times by "
           f"the warm-up step and the capture, want 2 x {per_step}")
-    dec_ops.launches = 0
+    ops.launches = 0
     eager = ServeEngine(model, params, n_slots=engine.n_slots,
                         max_len=engine.max_len)
     eager._graphable = False
@@ -996,9 +1142,9 @@ def graph_against_eager(name, model, params, engine, results, prompts,
                                                extra_inputs=extra or {})}
     check({r.uid: r.tokens for r in results} == want,
           f"{name}: the decode graph serves the eager step's tokens")
-    check(dec_ops.launches == per_step * eager.decode_steps,
+    check(ops.launches == per_step * eager.decode_steps,
           f"{name}: the eager engine launched decode attention "
-          f"{dec_ops.launches} times, want {per_step} x "
+          f"{ops.launches} times, want {per_step} x "
           f"{eager.decode_steps} steps")
     ms = eager.decode_s / eager.decode_steps * 1e3
     del eager
@@ -1076,8 +1222,8 @@ def padded_admission(name, model, params, engine, results, prompts
     then captured), every later admission a replay, and the counters'
     prompt and pad tokens. Then each prompt, admitted again into slot 0
     of the idle engine (a replay): its last logits, the slot's keys and
-    values at [0, width) and its length equal bit for bit those of the
-    same padded prefill run eagerly (``Model.prefill_into`` on the
+    values (a latent model's rows) at [0, width) and its length equal
+    bit for bit those of the same padded prefill run eagerly (``Model.prefill_into`` on the
     engine's inputs), and within PADDED_REL_TOL of today's
     ``Model.prefill`` (logits, keys and values at [0, s)); for the first
     prompt of each bucket the wall ms of an admission through today's
@@ -1099,12 +1245,13 @@ def padded_admission(name, model, params, engine, results, prompts
           f"{name}: the padded admission counted {sum(lengths)} prompt and "
           f"{sum(widths) - sum(lengths)} pad tokens")
     cache, ins, out, errs = engine.cache, engine._inputs, {}, {}
+    names = sorted(cache["layers"])
     lengths_before = cache["length"].clone()
     for i, prompt in enumerate(prompts):
         s, width = len(prompt), widths[i]
 
         def rows(upto):
-            return [cache["layers"][k][:, 0, :upto].clone() for k in "kv"]
+            return [cache["layers"][k][:, 0, :upto].clone() for k in names]
 
         got = engine._admit_padded(prompt, 0).clone()
         got_rows, got_len = rows(width), int(cache["length"][0])
@@ -1124,11 +1271,11 @@ def padded_admission(name, model, params, engine, results, prompts
                                  / b.float().abs().max())
         err = {"logits": rel(got[:model.cfg.vocab],
                              today[0, -1, :model.cfg.vocab])}
-        for k, r in zip("kv", got_rows):
+        for k, r in zip(names, got_rows):
             err[k] = rel(r[:, :s], today_cache["layers"][k][:, 0, :s])
         print(f"  {name} padded admission of {s} tokens (bucket {width}) "
-              f"against today's prefill: logits {err['logits']:.2e}, keys "
-              f"{err['k']:.2e}, values {err['v']:.2e} of the largest")
+              f"against today's prefill, of the largest: "
+              + ", ".join(f"{k} {e:.2e}" for k, e in err.items()))
         errs[s] = err
         del today_cache
         if i != widths.index(width):
@@ -3121,6 +3268,12 @@ def main() -> int:
     # granite-4.0-h's attention layers: 32/8, d = 128, scaled by 1/128
     flash_rows += [check_flash(gen, 1, s, 32, 8, 128, torch.bfloat16,
                                scale=1 / 128) for s in (512, 1024)]
+    # DeepSeek-V2-Lite's expanded prefill: 16/16 at q.k 192 / v 128 over
+    # the long-chat mix's prompt lengths (1,024-15,872)
+    flash_mla = [check_flash(gen, 1, s, 16, 16, 192, torch.bfloat16,
+                             scale=MLA_SCALE, dv=128)
+                 for s in (1024, 4096, 8192, 15872)]
+    flash_rows += flash_mla
     flash_f32 = [check_flash(gen, 1, 512, 16, 8, 128, torch.float32),
                  check_flash(gen, 1, 512, 32, 32, 64, torch.float32)]
     print_rows("flash_attention", flash_rows)
@@ -3133,6 +3286,12 @@ def main() -> int:
                                  scale=1 / 128)
                     for dtype in (torch.bfloat16, torch.float32)]
     print_rows("decode_attention", decode_rows)
+    # the long-chat cell's decode: 32 slots 16,384 deep, 16 heads over one
+    # latent row, then shallower caches
+    mla_rows = [check_mla_decode(gen, 32, 16384, 16),
+                check_mla_decode(gen, 32, 4096, 16),
+                check_mla_decode(gen, 4, 2048, 16)]
+    print_rows("mla_decode", mla_rows)
     rms_rows = [check_rmsnorm(gen, shape, dtype)
                 for shape in ((2048, 1024), (2, 64, 128), (4, 100, 256),
                               (512, 384), (1, 7, 64))
@@ -3234,6 +3393,13 @@ def main() -> int:
                   engine, results, lengths, wall, launches)
     print(f"  the scan padded {pad_share:.1%} of the positions it ran on")
     del engine, results
+    torch.cuda.empty_cache()
+
+    mla_engine, results, mla_launches, lengths, wall, serving[
+        f"deepseek-v2-lite ({MLA_LAYERS} layers)"] = serve_mla()
+    print_serving(f"deepseek-v2-lite ({MLA_LAYERS} layers)", mla_engine,
+                  results, lengths, wall, mla_launches)
+    del mla_engine, results
     torch.cuda.empty_cache()
 
     moe_launches = {}
@@ -3368,12 +3534,15 @@ def main() -> int:
                     "flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:101",
              launches=(flash_launches + hybrid_launches["flash_attention"]
+                       + mla_launches["flash_attention"]
                        + sum(moe_launches.values())
                        + sum(family_launches.values())
                        + sum(sharded_launches("flash_attention").values())),
              launches_by_path={
                  "qwen3-0.6b serving": flash_launches,
                  "zamba2-1.2b serving": hybrid_launches["flash_attention"],
+                 f"deepseek-v2-lite ({MLA_LAYERS} layers) serving":
+                     mla_launches["flash_attention"],
                  **{f"{arch} serving": n
                     for arch, n in moe_launches.items()},
                  **{f"{arch} serving": n
@@ -3421,6 +3590,8 @@ def main() -> int:
                                 for row in flash_moe]
     kernels[0]["whisper_vision_shapes"] = [{k: row[k] for k in keys}
                                            for row in flash_new]
+    kernels[0]["mla_shapes"] = [{k: row[k] for k in keys}
+                                for row in flash_mla]
     kernels[2]["fp32"] = {k: ssd_rows[1][0][k] for k in keys}
     kernels[2]["cumsum_ms"] = ssd_rows[0][0]["cumsum_ms"]
     kernels[3]["fp32"] = {k: ssd_rows[1][1][k] for k in keys}
@@ -3439,6 +3610,22 @@ def main() -> int:
         **{k: decode_rows[0][k] for k in keys},
         fp32={k: decode_rows[1][k] for k in keys},
         hybrid_shapes=[{k: row[k] for k in keys} for row in decode_rows[2:]]))
+    # MLA decode at the long-chat cell's shape, the others beside it; its
+    # launches are the deepseek-v2-lite serving phase's (warm-up step and
+    # capture), one per layer and eager step
+    kernels.append(dict(
+        name="mla_decode", route="cuda",
+        design="tensor-core split-KV over 256-row chunks, one block per "
+               "(slot, 16-head group, chunk) reading each latent row once "
+               "for the group, values the rows' first 512 columns; "
+               "partials merged in chunk order",
+        source="src/repro_torch/kernels/mla_decode/csrc/mla_decode.cu",
+        replaces="none: the reference has no latent attention",
+        launches=mla_launches["mla_decode"],
+        launches_by_path={f"deepseek-v2-lite ({MLA_LAYERS} layers) serving":
+                          mla_launches["mla_decode"]},
+        **{k: mla_rows[0][k] for k in keys},
+        other_shapes=[{k: row[k] for k in keys} for row in mla_rows[1:]]))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": train}))
     print(json.dumps({"kernels": kernels}))

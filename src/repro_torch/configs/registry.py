@@ -2,7 +2,8 @@
 
 All ten archs of the reference registry, in its six families
 (``ARCH_IDS``), and the archs of the port alone (``PORT_ARCH_IDS``:
-granite-4.0-h-small, family hybrid_moe), which the reference lacks.
+granite-4.0-h-small, family hybrid_moe; deepseek-v2-lite, family moe
+with latent attention), which the reference lacks.
 ``get_config(id)`` returns the full published config;
 ``reduced_config(id)`` a tiny same-family fp32 config for CPU tests, with
 no rematerialisation. The values are the reference
@@ -13,11 +14,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List
 
-from repro_torch.configs import (granite_4p0_h_small, granite_moe_3b_a800m,
-                                 llama3p2_vision_90b, olmo_1b, qwen1p5_32b,
-                                 qwen2_moe_a2p7b, qwen3_0p6b, starcoder2_7b,
-                                 whisper_tiny, xlstm_350m, zamba2_1p2b)
+from repro_torch.configs import (deepseek_v2_lite, granite_4p0_h_small,
+                                 granite_moe_3b_a800m, llama3p2_vision_90b,
+                                 olmo_1b, qwen1p5_32b, qwen2_moe_a2p7b,
+                                 qwen3_0p6b, starcoder2_7b, whisper_tiny,
+                                 xlstm_350m, zamba2_1p2b)
 from repro_torch.models.mamba2 import SSMConfig
+from repro_torch.models.mla import MLAConfig
 from repro_torch.models.model import ModelConfig
 from repro_torch.models.moe import MoEConfig
 from repro_torch.models.xlstm import XLSTMConfig
@@ -27,7 +30,7 @@ _MODULES = [zamba2_1p2b, qwen2_moe_a2p7b, granite_moe_3b_a800m, xlstm_350m,
             llama3p2_vision_90b]
 
 #: archs of the port alone
-_PORT_MODULES = [granite_4p0_h_small]
+_PORT_MODULES = [granite_4p0_h_small, deepseek_v2_lite]
 
 ARCH_IDS: List[str] = [m.CONFIG.name for m in _MODULES]
 PORT_ARCH_IDS: List[str] = [m.CONFIG.name for m in _PORT_MODULES]
@@ -63,6 +66,10 @@ def reduced_config(name: str, **overrides) -> ModelConfig:
         r["ssm"] = SSMConfig(state=16, head_dim=32, expand=2, conv_kernel=4,
                              chunk=32, conv_xbc=cfg.ssm.conv_xbc,
                              pad_to_chunk=cfg.ssm.pad_to_chunk)
+    if cfg.mla is not None:
+        # heads of 16 + 16 rope dims against a 64-wide latent
+        r.update(mla=MLAConfig(kv_rank=64, nope_dim=16, rope_dim=16,
+                               v_dim=32), head_dim=32)
     if cfg.attn_layers:
         # one attention layer among three Mamba2 ones, a GQA group of 2
         r.update(attn_layers=(1,), kv_heads=2)

@@ -1,5 +1,5 @@
 """Hand-written Hopper kernels of the port: one package per TPU kernel of
-the reference, and one (decode attention) that replaces none.
+the reference, and two (decode attention, MLA decode) that replace none.
 
   flash_attention/  causal GQA flash attention, CUDA C++ for sm_90a
                     (replaces repro/kernels/flash_attention)
@@ -10,6 +10,10 @@ the reference, and one (decode attention) that replaces none.
   decode_attention/ grouped split-KV decode attention over the KV cache,
                     CUDA C++ for sm_90a (replaces no TPU kernel: the
                     reference decodes with plain attention)
+  mla_decode/       split-KV multi-query decode attention over a latent
+                    cache (DeepSeek-V2's absorbed MLA), CUDA C++ for
+                    sm_90a on the tensor cores (replaces no TPU kernel:
+                    the reference has no latent attention)
 
 Each package keeps the reference's split: ``kernel.py`` (the launch),
 ``ref.py`` (plain torch) and ``ops.py`` (dispatch). ``ops`` takes the

@@ -16,7 +16,9 @@
 // Two routes, chosen by the input type:
 //
 // bf16 (flash_fwd_mma, the model path): FlashAttention-2 on the tensor
-// cores. One block owns 64 q rows of one (batch, head) and has two groups
+// cores, at q.k width DK and value width DV (equal but for latent
+// attention's expanded prefill, DeepSeek-V2's 192 / 128: its own
+// instantiation, with no padding of v). One block owns 64 q rows of one (batch, head) and has two groups
 // of 4 warps; each warp owns 16 rows, and the two groups walk alternate
 // kv tiles of 64 rows and combine their partial softmaxes at the end, so
 // the longest block's serial walk is half as long. S = Q K^T and P V run
@@ -64,11 +66,12 @@ constexpr int MKV = 64;       // kv rows per tile
 constexpr int MGT = 128;      // threads per warp group
 constexpr int MNT = 2 * MGT;  // threads per block: two warp groups
 
-template <int D>
+template <int DK, int DV>
 constexpr size_t mma_smem_bytes() {
   // Q, then for each warp group two stages of (K, V); rows padded by 8
   // elements (16 bytes). The combine buffer reuses the K/V stages.
-  return sizeof(bf16) * (size_t)(MQ + 8 * MKV) * (D + 8);
+  return sizeof(bf16) *
+         ((size_t)MQ * (DK + 8) + 4 * (size_t)MKV * (DK + 8 + DV + 8));
 }
 
 // Rows [row0, row0 + 64) of one head into a padded shared tile by 16-byte
@@ -95,7 +98,7 @@ __device__ __forceinline__ void group_sync(int gid) {
 
 // at least one block per SM: without the bound ptxas caps d = 64 at 128
 // registers (two blocks per SM) and spills
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(MNT, 1)
 flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, bf16* __restrict__ o, int nb,
@@ -103,10 +106,13 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
               int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
               int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t o_sb,
               int64_t o_ss, int64_t o_sh, float scale, int causal) {
-  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
-  constexpr int LD = D + 8;
-  constexpr int KD = D / 16;  // k steps of Q K^T
-  constexpr int ND = D / 8;   // 8-column tiles of the output
+  static_assert(DK % 16 == 0 && DV % 16 == 0,
+                "head dims must be multiples of 16");
+  constexpr int LD = DK + 8;   // padded row of Q and K
+  constexpr int LDV = DV + 8;  // padded row of V
+  constexpr int KD = DK / 16;  // k steps of Q K^T
+  constexpr int ND = DV / 8;   // 8-column tiles of the output
+  constexpr int STAGE = MKV * (LD + LDV);  // one stage: K, then V
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
 
@@ -126,7 +132,7 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int g = lane >> 2, t = lane & 3;
   const int q0 = qt * MQ;
   const int row_w = q0 + (warp & 3) * 16;  // this warp's first row
-  bf16* sKV = sQ + (MQ + gid * 4 * MKV) * LD;  // stage st: K, then V
+  bf16* sKV = sQ + MQ * LD + gid * 2 * STAGE;  // stage st: K, then V
 
   const bf16* qp = q + ib * q_sb + ih * q_sh;
   const bf16* kp = k + ib * k_sb + ikv * k_sh;
@@ -136,10 +142,10 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int kv_end = causal ? min(skv, q_end) : skv;
   const int n_kv = (kv_end + MKV - 1) / MKV;
 
-  load_tile_async<D>(sQ, qp, q_ss, q0, sq, threadIdx.x, MNT);
+  load_tile_async<DK>(sQ, qp, q_ss, q0, sq, threadIdx.x, MNT);
   if (gid < n_kv) {
-    load_tile_async<D>(sKV, kp, k_ss, gid * MKV, skv, gtid, MGT);
-    load_tile_async<D>(sKV + MKV * LD, vp, v_ss, gid * MKV, skv, gtid, MGT);
+    load_tile_async<DK>(sKV, kp, k_ss, gid * MKV, skv, gtid, MGT);
+    load_tile_async<DV>(sKV + MKV * LD, vp, v_ss, gid * MKV, skv, gtid, MGT);
   }
   cp_async_commit();
   cp_async_wait<0>();
@@ -162,13 +168,13 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   int stage = 0;
   for (int it = gid; it < n_kv; it += 2, stage ^= 1) {
     const int kv0 = it * MKV;
-    const bf16* sK = sKV + stage * 2 * MKV * LD;
+    const bf16* sK = sKV + stage * STAGE;
     const bf16* sV = sK + MKV * LD;
     if (it + 2 < n_kv) {
-      bf16* nk = sKV + (stage ^ 1) * 2 * MKV * LD;
-      load_tile_async<D>(nk, kp, k_ss, kv0 + 2 * MKV, skv, gtid, MGT);
-      load_tile_async<D>(nk + MKV * LD, vp, v_ss, kv0 + 2 * MKV, skv, gtid,
-                         MGT);
+      bf16* nk = sKV + (stage ^ 1) * STAGE;
+      load_tile_async<DK>(nk, kp, k_ss, kv0 + 2 * MKV, skv, gtid, MGT);
+      load_tile_async<DV>(nk + MKV * LD, vp, v_ss, kv0 + 2 * MKV, skv, gtid,
+                          MGT);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -239,7 +245,7 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int dn = 0; dn < ND / 2; ++dn) {
         uint32_t vf[4];
         ldmatrix_x4_trans(
-            vf, sV + (c * 16 + (lane & 7) + (((lane >> 3) & 1) << 3)) * LD +
+            vf, sV + (c * 16 + (lane & 7) + (((lane >> 3) & 1) << 3)) * LDV +
                     dn * 16 + ((lane >> 4) << 3));
         mma_bf16(acc[2 * dn], pa, vf[0], vf[1]);
         mma_bf16(acc[2 * dn + 1], pa, vf[2], vf[3]);
@@ -251,7 +257,7 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // group 1 hands its (acc, m, l) to the same lane of group 0 through
   // shared memory (the K/V stages, free now), one column per thread
   static_assert((ND * 4 + 4) * MGT * sizeof(float) <=
-                    8 * MKV * LD * sizeof(bf16),
+                    4 * STAGE * sizeof(bf16),
                 "the combine buffer fits in the K/V stages");
   float* sX = reinterpret_cast<float*>(sQ + MQ * LD);  // (ND*4 + 4) x MGT
   __syncthreads();
@@ -470,25 +476,33 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 // launches
 // ---------------------------------------------------------------------------
 
+template <int DK, int DV>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
+                       int b, int sq, int skv, int h, int hkv,
+                       const int64_t* st, float scale, int causal,
+                       cudaStream_t stream) {
+  auto kernel = flash_fwd_mma<DK, DV>;
+  constexpr size_t smem = mma_smem_bytes<DK, DV>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int blocks = (sq + MQ - 1) / MQ * h * b;
+  kernel<<<blocks, MNT, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), b, sq, skv, h, hkv,
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
+      st[10], st[11], scale, causal);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
                    void* o, int b, int sq, int skv, int h, int hkv,
                    const int64_t* st, float scale, int causal,
                    cudaStream_t stream) {
-  if (dtype == 1) {
-    auto kernel = flash_fwd_mma<D>;
-    constexpr size_t smem = mma_smem_bytes<D>();
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    const int blocks = (sq + MQ - 1) / MQ * h * b;
-    kernel<<<blocks, MNT, smem, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(o), b, sq, skv, h,
-        hkv, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-        st[9], st[10], st[11], scale, causal);
-    return cudaGetLastError();
-  }
+  if (dtype == 1)
+    return launch_mma<D, D>(q, k, v, o, b, sq, skv, h, hkv, st, scale, causal,
+                            stream);
   auto kernel = flash_fwd_f32<D>;
   constexpr size_t smem = f32_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -506,16 +520,23 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = float32 (scalar route), 1 = bfloat16 (tensor-core route; every
-// row of q, k, v must start on a 16-byte boundary). strides (elements): q,
-// k, v, o each as (batch, seq, head); head_dim must be contiguous. Returns
-// cudaGetLastError after the launch (0 on success).
-extern "C" int flash_attention_fwd(int dtype, int d, const void* q,
+// row of q, k, v must start on a 16-byte boundary). d is the head dim of q
+// and k, dv that of v and o: equal, or 192 and 128 in bf16. strides
+// (elements): q, k, v, o each as (batch, seq, head); head dims must be
+// contiguous. Returns cudaGetLastError after the launch (0 on success).
+extern "C" int flash_attention_fwd(int dtype, int d, int dv, const void* q,
                                    const void* k, const void* v, void* o,
                                    int b, int sq, int skv, int h, int hkv,
                                    const int64_t* strides, float scale,
                                    int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+  if (dv != d) {
+    if (dtype == 1 && d == 192 && dv == 128)
+      return launch_mma<192, 128>(q, k, v, o, b, sq, skv, h, hkv, strides,
+                                  scale, causal, s);
+    return cudaErrorInvalidValue;
+  }
   switch (d) {
     case 32:
       return launch<32>(dtype, q, k, v, o, b, sq, skv, h, hkv, strides, scale,

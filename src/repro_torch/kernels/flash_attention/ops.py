@@ -19,7 +19,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Causal GQA flash attention.
 
-    q: (b, sq, h, d); k/v: (b, skv, hkv, d); returns (b, sq, h, d). The
+    q: (b, sq, h, d); k: (b, skv, hkv, d); v: (b, skv, hkv, dv), dv = d
+    but in latent attention's prefill; returns (b, sq, h, dv). The
     scores are scaled by ``scale`` (None: d^-1/2, as before the argument
     existed).
     A CUDA tensor goes through the CUDA kernel (or the call raises); a

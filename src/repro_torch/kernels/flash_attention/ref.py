@@ -11,7 +11,8 @@ NEG_INF = -1e30
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True,
                   scale: Optional[float] = None) -> torch.Tensor:
-    """q: (b, sq, h, d); k/v: (b, skv, hkv, d). fp32 softmax, GQA grouping.
+    """q: (b, sq, h, d); k: (b, skv, hkv, d); v: (b, skv, hkv, dv). fp32
+    softmax, GQA grouping; returns (b, sq, h, dv).
 
     The causal mask keeps key ``j`` for query ``i`` when ``j <= i``.
     """
@@ -28,4 +29,4 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
-    return out.reshape(b, sq, h, d).to(q.dtype)
+    return out.reshape(b, sq, h, v.shape[-1]).to(q.dtype)

@@ -20,6 +20,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models import mamba2 as m2
+from repro_torch.models import mla
 from repro_torch.models import transformer as tf
 from repro_torch.models import xlstm as xl
 from repro_torch.models.layers import (apply_norm, dense_init, embed_axes,
@@ -148,6 +149,10 @@ class Family:
                              f"nor norm_eps; only {SCALED_FAMILIES} do")
         if cfg.attn_layers and cfg.family != "hybrid_moe":
             raise ValueError("attn_layers is hybrid_moe's")
+        if (cfg.mla is not None or cfg.dense_layers) and \
+                cfg.family not in ("dense", "moe"):
+            raise ValueError("latent attention and leading dense layers are "
+                             "the decoder families' (dense, moe)")
         self.cfg, self.device, self.dt = cfg, device, cfg.tdtype
         self.bcfg = cfg.block_cfg(moe=self.experts)
         self.plan: Tuple[Layer, ...] = tuple(self._plan())
@@ -209,59 +214,94 @@ class Family:
 
 
 class Decoder(Family):
-    """dense and moe: ``n_layers`` decoder blocks, stack ``layers``."""
+    """dense and moe: ``n_layers`` decoder blocks, stack ``layers``; in a
+    moe model the first ``dense_layers`` of them have a dense MLP of width
+    ``d_ff`` (stack ``dense_layers``; their cache rows stay in the one
+    cache stack). With ``mla`` every block's attention is latent and so is
+    its cache (:mod:`models.mla`'s blocks)."""
 
     pads_prefill = True
 
+    def __init__(self, cfg, device):
+        if cfg.dense_layers and cfg.moe is None:
+            raise ValueError("dense_layers lead the expert layers of a moe "
+                             "model")
+        if cfg.mla is not None and cfg.kv_cache_quant:
+            raise ValueError("latent attention keeps no int8 cache")
+        super().__init__(cfg, device)
+        #: the module of the blocks' entry points
+        self.blocks = tf if cfg.mla is None else mla
+        self.dense_bcfg = cfg.block_cfg(moe=False)
+
     def _plan(self):
-        return (Layer("attn", ("layers", i), ("layers", i))
+        k = self.cfg.dense_layers
+        return (Layer("attn", ("dense_layers", i) if i < k
+                      else ("layers", i - k), ("layers", i))
                 for i in range(self.cfg.n_layers))
 
+    def _bcfg(self, layer: Layer):
+        return self.dense_bcfg if layer.params[0] == "dense_layers" \
+            else self.bcfg
+
     def build(self, gen):
-        return {"embed": self._embed_params(gen),
-                "layers": stack_params(self.rows("layers"), self._block(gen)),
-                "final_norm": self._norm_params()}
+        def block(bcfg):
+            return lambda: self.blocks.make_decoder_block(gen, bcfg, self.dt,
+                                                          self.device)
+        params = {"embed": self._embed_params(gen)}
+        if self.rows("dense_layers"):
+            params["dense_layers"] = stack_params(self.rows("dense_layers"),
+                                                  block(self.dense_bcfg))
+        params["layers"] = stack_params(self.rows("layers"), block(self.bcfg))
+        params["final_norm"] = self._norm_params()
+        return params
 
     def axes(self):
-        return self._axes(
-            layers=prepend_axis(tf.decoder_block_axes(self.bcfg)))
+        stacks = {"layers": prepend_axis(
+            self.blocks.decoder_block_axes(self.bcfg))}
+        if self.rows("dense_layers"):
+            stacks["dense_layers"] = prepend_axis(
+                self.blocks.decoder_block_axes(self.dense_bcfg))
+        return self._axes(**stacks)
 
     def cache(self, batch, max_len):
         quantized = self.cfg.kv_cache_quant
-        one = self._kv_cache(batch, max_len, quantized=quantized)
-        axes = tf.BLOCK_CACHE_AXES_Q if quantized else BLOCK_CACHE_AXES
+        one = self.blocks.init_block_cache(batch, max_len, self.bcfg,
+                                           self.dt, self.device,
+                                           quantized=quantized)
+        axes = tf.BLOCK_CACHE_AXES_Q if quantized else \
+            self.blocks.BLOCK_CACHE_AXES
         return ({"layers": _stacked(one, self.rows("layers", cache=True))},
                 {"layers": prepend_axis(axes)})
 
     def forward(self, params, x, batch):
         block = _maybe_remat(
-            lambda lp, h: tf.apply_decoder_block(lp, h, self.bcfg),
+            lambda lp, h, bcfg: self.blocks.apply_decoder_block(lp, h, bcfg),
             self.cfg.remat)
         aux = _zero_aux(x)
-        for _, lp, _ in self.walk(params):
-            x, a = block(lp, constrain(x, ACT_AXES))
+        for layer, lp, _ in self.walk(params):
+            x, a = block(lp, constrain(x, ACT_AXES), self._bcfg(layer))
             aux = aux + a
         return x, aux
 
     def prefill(self, params, x, batch, max_len):
         caches = []
-        for _, lp, _ in self.walk(params):
-            x, _, c = tf.prefill_decoder_block(
-                lp, constrain(x, ACT_AXES), self.bcfg, max_len,
+        for layer, lp, _ in self.walk(params):
+            x, _, c = self.blocks.prefill_decoder_block(
+                lp, constrain(x, ACT_AXES), self._bcfg(layer), max_len,
                 quantized=self.cfg.kv_cache_quant)
             caches.append(c)
         return x, {"layers": _stack(caches)}
 
     def prefill_into(self, params, x, cache, slot, real):
-        for _, lp, lc in self.walk(params, cache):
-            x = tf.prefill_decoder_block_into(lp, x, self.bcfg, lc, slot,
-                                              real)
+        for layer, lp, lc in self.walk(params, cache):
+            x = self.blocks.prefill_decoder_block_into(
+                lp, x, self._bcfg(layer), lc, slot, real)
         return x
 
     def decode(self, params, cache, x, length):
-        for _, lp, lc in self.walk(params, cache):
-            x, _ = tf.decode_decoder_block(lp, constrain(x, ACT_AXES), lc,
-                                           length, self.bcfg)
+        for layer, lp, lc in self.walk(params, cache):
+            x, _ = self.blocks.decode_decoder_block(
+                lp, constrain(x, ACT_AXES), lc, length, self._bcfg(layer))
         return x
 
 

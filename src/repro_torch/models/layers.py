@@ -9,7 +9,9 @@ Conventions kept from the reference:
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import dataclasses
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -112,20 +114,86 @@ def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
     return 1.0 / (theta ** exponent)
 
 
+@dataclasses.dataclass(frozen=True)
+class YarnConfig:
+    """YaRN's rope scaling (DeepSeek-V2's ``rope_scaling`` of type
+    ``yarn``): the frequencies of the dims that turn fewer than
+    ``beta_slow`` times over ``original_max_pos`` positions are divided by
+    ``factor``, those that turn more than ``beta_fast`` times are kept,
+    and a linear ramp blends the dims between; the attention scores gain
+    ``yarn_mscale(factor, mscale_all_dim)`` squared. The published
+    ``mscale`` is taken equal to ``mscale_all_dim``, as in DeepSeek-V2,
+    so cos and sin keep their unit gain."""
+
+    factor: float
+    original_max_pos: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale_all_dim: float = 0.0
+
+
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's magnitude correction: 0.1 mscale ln(factor) + 1 (1 at
+    factor <= 1)."""
+    return 1.0 if factor <= 1.0 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn_correction_range(dim: int, theta: float, yarn: YarnConfig
+                          ) -> Tuple[int, int]:
+    """The dims (of the ``dim // 2`` frequencies) where the ramp starts and
+    ends: a frequency index whose dim turns ``beta`` times over the
+    original context, floored for ``beta_fast`` and ceiled for
+    ``beta_slow``, clamped to [0, dim - 1]."""
+    def at(turns: float) -> float:
+        return (dim * math.log(yarn.original_max_pos / (turns * 2 * math.pi))
+                / (2 * math.log(theta)))
+    low = math.floor(at(yarn.beta_fast))
+    high = math.ceil(at(yarn.beta_slow))
+    return max(low, 0), min(high, dim - 1)
+
+
+def yarn_frequencies(dim: int, theta: float, yarn: YarnConfig,
+                     device) -> torch.Tensor:
+    """The ``dim // 2`` inverse frequencies under YaRN: the plain ones
+    (extrapolated) below the ramp, divided by ``factor`` (interpolated)
+    above it, linearly between."""
+    exponent = torch.arange(0, dim, 2, dtype=torch.float32,
+                            device=device) / dim
+    extra = 1.0 / (theta ** exponent)
+    inter = 1.0 / (yarn.factor * theta ** exponent)
+    low, high = yarn_correction_range(dim, theta, yarn)
+    span = max(high - low, 0.001)
+    ramp = ((torch.arange(dim // 2, dtype=torch.float32, device=device) - low)
+            / span).clamp(0.0, 1.0)
+    keep = 1.0 - ramp
+    return inter * (1.0 - keep) + extra * keep
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
+               theta: float, yarn: Optional[YarnConfig] = None
+               ) -> torch.Tensor:
     """x: (..., seq, heads, head_dim); positions: (..., seq).
 
     Split-half rotation (the two halves of head_dim pair up), not the
-    interleaved form.
+    interleaved form. With ``yarn`` the frequencies are YaRN's.
     """
-    freqs = rope_frequencies(x.shape[-1], theta, x.device)     # (hd/2,)
+    d = x.shape[-1]
+    freqs = (rope_frequencies(d, theta, x.device) if yarn is None
+             else yarn_frequencies(d, theta, yarn, x.device))   # (hd/2,)
     angles = positions[..., :, None].float() * freqs           # (..., seq, hd/2)
     cos = torch.cos(angles)[..., :, None, :]                   # (..., seq, 1, hd/2)
     sin = torch.sin(angles)[..., :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def deinterleave(x: torch.Tensor) -> torch.Tensor:
+    """(..., d) with its pairs (2i, 2i + 1) moved to (i, i + d/2): the even
+    dims, then the odd ones. DeepSeek-V2 stores its rope dims interleaved
+    and rotates them split-half after this permutation."""
+    d = x.shape[-1]
+    return x.unflatten(-1, (d // 2, 2)).transpose(-1, -2).flatten(-2)
 
 
 # --------------------------------------------------------------------------

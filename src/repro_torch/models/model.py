@@ -40,7 +40,9 @@ from repro_torch.models import mamba2 as m2
 from repro_torch.models import xlstm as xl
 from repro_torch.models.families import (  # noqa: F401 re-exported
     ACT_AXES, FAMILIES, REMAT, SCALED_FAMILIES, Layer, Tree, _maybe_remat)
-from repro_torch.models.layers import apply_norm, embed_tokens, unembed
+from repro_torch.models.layers import (YarnConfig, apply_norm, embed_tokens,
+                                       unembed, yarn_mscale)
+from repro_torch.models.mla import MLAConfig
 from repro_torch.models.moe import MoEConfig, RealTokens, capacity
 from repro_torch.models.transformer import BlockConfig
 from repro_torch.tracing import span
@@ -95,6 +97,15 @@ class ModelConfig:
     logits_scaling: float = 1.0
     #: every norm's epsilon (moe, hybrid_moe; None: each norm's own)
     norm_eps: Optional[float] = None
+    #: multi-head latent attention (DeepSeek-V2; dense and moe): keys and
+    #: values through a normalised latent, one latent row a position in
+    #: the decode cache; ``head_dim`` is then its q.k width, nope + rope
+    mla: Optional[MLAConfig] = None
+    #: YaRN's scaling of the rope (with ``mla``)
+    yarn: Optional[YarnConfig] = None
+    #: moe: the leading layers whose FFN is a dense MLP of width ``d_ff``
+    #: (DeepSeek-V2's ``first_k_dense_replace``)
+    dense_layers: int = 0
 
     @property
     def hd(self) -> int:
@@ -109,6 +120,17 @@ class ModelConfig:
     def tdtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
+    @property
+    def attn_scale(self) -> Optional[float]:
+        """The attention scores' scale: ``attention_multiplier``, or with
+        ``mla`` (nope + rope)^-1/2 times YaRN's ``mscale_all_dim`` mscale
+        squared, as DeepSeek-V2 scales; None: head_dim^-1/2."""
+        if self.attention_multiplier is not None or self.mla is None:
+            return self.attention_multiplier
+        gain = 1.0 if self.yarn is None or not self.yarn.mscale_all_dim \
+            else yarn_mscale(self.yarn.factor, self.yarn.mscale_all_dim)
+        return self.mla.qk_dim ** -0.5 * gain * gain
+
     def block_cfg(self, *, moe: bool = True, d_ff: Optional[int] = None
                   ) -> BlockConfig:
         return BlockConfig(
@@ -117,9 +139,9 @@ class ModelConfig:
             norm=self.norm, mlp=self.mlp, qkv_bias=self.qkv_bias,
             qk_norm=self.qk_norm, rope_theta=self.rope_theta,
             moe=self.moe if moe else None, attn_impl=self.attn_impl,
-            attn_scale=self.attention_multiplier,
+            attn_scale=self.attn_scale,
             residual_multiplier=self.residual_multiplier,
-            norm_eps=self.norm_eps)
+            norm_eps=self.norm_eps, mla=self.mla, yarn=self.yarn)
 
     def n_params(self) -> int:
         """Total parameter count, from shapes on the meta device."""
@@ -128,13 +150,14 @@ class ModelConfig:
 
     def n_active_params(self) -> int:
         """Active params per token (MoE: routed top-k + shared only; every
-        layer of the moe and hybrid_moe families has experts)."""
+        layer of the moe and hybrid_moe families has experts but the
+        ``dense_layers`` leading ones, whose MLP is all active)."""
         total = self.n_params()
         if self.moe is None:
             return total
         per_expert = 3 * self.d_model * self.moe.expert_ff
         inactive = (self.moe.n_experts - self.moe.top_k) * per_expert \
-            * self.n_layers
+            * (self.n_layers - self.dense_layers)
         return total - inactive
 
 

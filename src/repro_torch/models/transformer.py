@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import TYPE_CHECKING, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,12 +33,16 @@ from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.models.attention import (_BSHD, _project_qkv, _sdpa_plain,
                                           attention_axes,
                                           make_attention_params, sdpa)
-from repro_torch.models.layers import (apply_mlp, apply_norm, make_mlp_params,
-                                       make_norm_params, mlp_axes, norm_axes)
+from repro_torch.models.layers import (YarnConfig, apply_mlp, apply_norm,
+                                       make_mlp_params, make_norm_params,
+                                       mlp_axes, norm_axes)
 from repro_torch.models.moe import (MoEConfig, RealTokens, apply_moe,
                                     make_moe_params, moe_axes)
 from repro_torch.tracing import span
 from repro_torch.tree import tree_leaves, tree_map  # noqa: F401 re-exported
+
+if TYPE_CHECKING:
+    from repro_torch.models.mla import MLAConfig
 
 Tree = Dict[str, object]
 
@@ -65,6 +69,11 @@ class BlockConfig:
     residual_multiplier: float = 1.0
     #: the norms' epsilon (None: each norm's default)
     norm_eps: Optional[float] = None
+    #: latent attention (its blocks are models/mla.py's); None: per-head
+    #: keys and values
+    mla: Optional["MLAConfig"] = None
+    #: YaRN's rope scaling (latent attention's rope dims)
+    yarn: Optional[YarnConfig] = None
 
 
 def residual(out: torch.Tensor, cfg: BlockConfig) -> torch.Tensor:
@@ -121,11 +130,10 @@ def unstack_params(tree: Tree, n: int) -> List[Tree]:
 # standard decoder block (attention + MLP or MoE)
 # --------------------------------------------------------------------------
 
-def make_decoder_block(gen, cfg: BlockConfig, dtype, device) -> Tree:
-    params = {"attn": make_attention_params(
-                  gen, cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim,
-                  dtype, device, qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm),
-              "norm1": make_norm_params(cfg.d_model, cfg.norm, dtype, device),
+def block_rest(gen, cfg: BlockConfig, dtype, device) -> Tree:
+    """A decoder block's parameters after its attention: the two norms and
+    the MLP or the experts."""
+    params = {"norm1": make_norm_params(cfg.d_model, cfg.norm, dtype, device),
               "norm2": make_norm_params(cfg.d_model, cfg.norm, dtype, device)}
     if cfg.moe is not None:
         params["moe"] = make_moe_params(gen, cfg.d_model, cfg.moe, dtype,
@@ -136,16 +144,28 @@ def make_decoder_block(gen, cfg: BlockConfig, dtype, device) -> Tree:
     return params
 
 
-def decoder_block_axes(cfg: BlockConfig) -> Tree:
-    """The logical axes of :func:`make_decoder_block`'s tree."""
-    axes = {"attn": attention_axes(qkv_bias=cfg.qkv_bias,
-                                   qk_norm=cfg.qk_norm),
-            "norm1": norm_axes(cfg.norm), "norm2": norm_axes(cfg.norm)}
+def block_rest_axes(cfg: BlockConfig) -> Tree:
+    """The logical axes of :func:`block_rest`'s tree."""
+    axes = {"norm1": norm_axes(cfg.norm), "norm2": norm_axes(cfg.norm)}
     if cfg.moe is not None:
         axes["moe"] = moe_axes(cfg.moe)
     else:
         axes["mlp"] = mlp_axes(cfg.mlp)
     return axes
+
+
+def make_decoder_block(gen, cfg: BlockConfig, dtype, device) -> Tree:
+    attn = make_attention_params(
+        gen, cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim, dtype,
+        device, qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm)
+    return {"attn": attn, **block_rest(gen, cfg, dtype, device)}
+
+
+def decoder_block_axes(cfg: BlockConfig) -> Tree:
+    """The logical axes of :func:`make_decoder_block`'s tree."""
+    return {"attn": attention_axes(qkv_bias=cfg.qkv_bias,
+                                   qk_norm=cfg.qk_norm),
+            **block_rest_axes(cfg)}
 
 
 def _ffn(params: Tree, x: torch.Tensor, cfg: BlockConfig,

@@ -4,7 +4,10 @@ Spans name the work where it happens: ``rt.prefill`` / ``rt.decode``
 around the model's calls, ``rt.attn``, ``rt.mlp`` / ``rt.moe``,
 ``rt.mamba``, ``rt.mlstm`` / ``rt.slstm`` and ``rt.cross`` around each
 block's sublayers (``rt.shared`` around a shared expert, inside
-``rt.moe``), ``rt.logits`` around the final norm and unembedding,
+``rt.moe``; inside a latent attention's ``rt.attn``, ``rt.mla.latent``
+around its down-projection, latent norm, k_pe rotation and cache write,
+and ``rt.mla.expand`` in a prefill or ``rt.mla.absorb`` in a decode
+step), ``rt.logits`` around the final norm and unembedding,
 and ``rt.admit``, ``rt.readback`` and ``rt.sample`` in the serving
 engine. While tracing is on, each is a ``record_function`` range: a
 ``torch.profiler`` running at the same time puts it in its trace, on the

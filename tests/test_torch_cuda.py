@@ -14,6 +14,8 @@ from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.mla_decode import ops as mla_ops
+from repro_torch.kernels.mla_decode.ref import mla_decode_ref
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm.ref import fused_rmsnorm_ref
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
@@ -978,3 +980,173 @@ def test_online_run_on_the_card_matches_cpu(cuda, monkeypatch):
     assert len(sweeps) > 1 and set(sweeps) == {None}
     monkeypatch.setattr(engine_mod, "fast_plane_sweep", real)
     assert card.to_payload() == run_online(spec, device="cpu").to_payload()
+
+
+# --------------------------------------------------------------------------
+# latent attention (DeepSeek-V2): the MLA decode kernel, flash at 192 / 128
+# --------------------------------------------------------------------------
+
+#: DeepSeek-V2's cache row [c (512), k_pe (64)], its value width and its
+#: scale, 192^-1/2 times YaRN's mscale (0.1 x 0.707 ln 40 + 1) squared
+MLA_ROW, MLA_V, MLA_SCALE = 576, 512, 0.1147213867929261
+#: the MLA decode kernel against the plain version computed in fp32 on the
+#: same bf16 inputs: the kernel's scores and softmax are fp32, but it
+#: rounds each tile's probabilities to bf16 for the tensor cores' P V
+#: (2^-9 relative, relative to the running max of the tiles so far) and
+#: its output once to bf16 (2^-9)
+MLA_TOL = dict(atol=2e-3, rtol=1e-2)
+#: (slots, cache depth, heads): the cell's 32 x 16,384, a short cache, two
+#: head groups, one slot
+MLA_SHAPES = [(32, 16384, 16), (5, 700, 16), (3, 300, 32), (1, 257, 16)]
+
+
+def _mla_inputs(rng, b, S, h, device, poison=None):
+    """q, and the cache as the layer's view of a stacked two-layer latent
+    cache, with ragged lengths (0, S - 1 and one idle slot past the end
+    among them); rows past each slot's length hold ``poison`` where
+    given."""
+    q = _normal(rng, (b, h, MLA_ROW), torch.bfloat16, device)
+    cache = _normal(rng, (2, b, S, MLA_ROW), torch.bfloat16, device)[1]
+    lengths = rng.integers(0, S, b)
+    lengths[0] = 0
+    lengths[1 % b] = S - 1
+    lengths[2 % b] = S + 5
+    if poison is not None:
+        for r, n in enumerate(lengths):
+            cache[r, n + 1:] = poison
+    return q, cache, torch.tensor(lengths, dtype=torch.int32, device=device)
+
+
+@pytest.mark.parametrize("b,S,h", MLA_SHAPES)
+@pytest.mark.parametrize("poison", [None, float("nan")])
+def test_mla_decode_kernel_matches_plain(cuda, b, S, h, poison):
+    """Ragged live lengths, rows past them poisoned: the kernel reads none
+    of them and matches the plain version in fp32 (MLA_TOL); one launch
+    counted."""
+    rng = np.random.default_rng(31)
+    q, cache, length = _mla_inputs(rng, b, S, h, cuda, poison)
+    before = mla_ops.launches
+    out = mla_ops.mla_decode(q, cache, length, v_dim=MLA_V, scale=MLA_SCALE)
+    torch.cuda.synchronize()
+    assert mla_ops.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == (b, h, MLA_V)
+    assert torch.isfinite(out).all()
+    want = mla_decode_ref(q.float(), cache.float(), length, v_dim=MLA_V,
+                          scale=MLA_SCALE)
+    _close(out, want, MLA_TOL)
+
+
+def test_mla_decode_kernel_repeats_bit_for_bit(cuda):
+    """The partials are merged in chunk order, without atomics: two calls
+    give the same bits."""
+    rng = np.random.default_rng(32)
+    q, cache, length = _mla_inputs(rng, 32, 16384, 16, cuda)
+    a = mla_ops.mla_decode(q, cache, length, v_dim=MLA_V, scale=MLA_SCALE)
+    b = mla_ops.mla_decode(q, cache, length, v_dim=MLA_V, scale=MLA_SCALE)
+    assert torch.equal(a, b)
+
+
+def test_mla_decode_kernel_replays_in_a_graph(cuda):
+    """Captured into a CUDA graph, the call replays to the eager call's
+    bits, also after the lengths are rewritten in place."""
+    rng = np.random.default_rng(33)
+    q, cache, length = _mla_inputs(rng, 32, 4096, 16, cuda)
+    call = lambda: mla_ops.mla_decode(q, cache, length, v_dim=MLA_V,
+                                      scale=MLA_SCALE)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()                                                  # warm
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = mla_ops.launches
+    with torch.cuda.graph(graph):
+        out = call()
+    assert mla_ops.launches == before + 1
+    for lengths in (length.clone(), torch.from_numpy(
+            rng.integers(0, 4200, 32)).to(cuda, torch.int32)):
+        length.copy_(lengths)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, call())
+    assert mla_ops.launches == before + 3
+
+
+def test_mla_decode_kernel_rejects_what_it_does_not_take(cuda):
+    """fp32, another row width, a head count off a multiple of 16, rows
+    off 16-byte boundaries and int64 lengths raise; nothing launches."""
+    length = torch.tensor([3, 5], dtype=torch.int32, device=cuda)
+    q = torch.zeros((2, 16, MLA_ROW), dtype=torch.bfloat16, device=cuda)
+    cache = torch.zeros((2, 16, MLA_ROW), dtype=torch.bfloat16, device=cuda)
+    loose = torch.zeros((2, 16, MLA_ROW + 4), dtype=torch.bfloat16,
+                        device=cuda)
+    call = lambda q, c, n=length, v=MLA_V: mla_ops.mla_decode(
+        q, c, n, v_dim=v, scale=MLA_SCALE)
+    before = mla_ops.launches
+    with pytest.raises(TypeError, match="bfloat16"):
+        call(q.float(), cache.float())
+    with pytest.raises(ValueError, match="widths"):
+        call(q, cache, v=256)
+    with pytest.raises(ValueError, match="16-head"):
+        call(q[:, :8], cache)
+    with pytest.raises(ValueError, match="16-byte"):
+        call(q, loose[..., :MLA_ROW])
+    with pytest.raises(TypeError, match="int32"):
+        call(q, cache, length.long())
+    assert mla_ops.launches == before
+
+
+@pytest.mark.parametrize("s", [37, 1000, 4100])
+def test_flash_kernel_at_192_128_matches_plain(cuda, s):
+    """The expanded prefill's flash: 16 heads, q.k 192 and v 128 (v a view
+    of the kv projection's (k_nope, v) pairs, as the model passes it), at
+    DeepSeek-V2's scale, against the plain version in fp32 (TOL)."""
+    rng = np.random.default_rng(34)
+    q = _normal(rng, (1, s, 16, 192), torch.bfloat16, cuda)
+    k = _normal(rng, (1, s, 16, 192), torch.bfloat16, cuda)
+    v = _normal(rng, (1, s, 16, 256), torch.bfloat16, cuda)[..., 128:]
+    before = flash_ops.launches
+    out = flash_ops.flash_attention(q, k, v, scale=MLA_SCALE)
+    torch.cuda.synchronize()
+    assert flash_ops.launches == before + 1
+    assert out.shape == (1, s, 16, 128) and out.dtype == torch.bfloat16
+    want = attention_ref(q.float(), k.float(), v.float(), scale=MLA_SCALE)
+    _close(out, want, TOL[torch.bfloat16])
+
+
+def test_flash_kernel_refuses_other_split_head_dims(cuda):
+    """Only (192, 128) in bf16 takes a narrower v."""
+    q = torch.zeros((1, 64, 4, 192), device=cuda)
+    v = torch.zeros((1, 64, 4, 128), device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_ops.flash_attention(q, q, v)
+    qb = torch.zeros((1, 64, 4, 128), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_ops.flash_attention(qb, qb, qb[..., :64])
+
+
+def test_mla_decode_launches_once_a_layer_per_eager_step(cuda):
+    """DeepSeek-V2-Lite's attention at its published widths and depth (27
+    layers; 8 small experts, a short vocabulary): an eager decode step
+    launches the MLA decode kernel once per layer."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.models.moe import MoEConfig
+    cfg = dataclasses.replace(
+        get_config("deepseek-v2-lite"), attn_impl="kernel", vocab=512,
+        d_ff=256, moe=MoEConfig(n_experts=8, top_k=2, expert_ff=64,
+                                shared_ff=128, shared_gated=False))
+    model = Model(cfg, device=cuda)
+    params = model.init(seed=0)
+    tokens = torch.randint(0, 512, (4, 40), device=cuda)
+    with torch.no_grad():
+        _, cache = model.prefill(params, {"tokens": tokens[:1]}, max_len=64)
+        cache = {"layers": {"latent": cache["layers"]["latent"].expand(
+            -1, 4, -1, -1).contiguous()}, "length": cache["length"].expand(
+            4).contiguous()}
+        before = mla_ops.launches
+        logits, _ = model.decode_step(params, cache, tokens[:, :1])
+        torch.cuda.synchronize()
+    assert mla_ops.launches == before + 27
+    assert torch.isfinite(logits).all()
